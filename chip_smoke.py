@@ -13,15 +13,28 @@ It drives the port only (never jax, never trust4_tpu):
    shape against its plain PyTorch version on the card (bit-equal scores
    and counts, both epilogues), a 2,000-job sample against the native CPU
    DP, and warm CUDA-event timings (median of 15 launches) beside the
-   bound;
-3. gold phase: the paired-end gold reads through ``run_trust4`` on the
+   bound; then the scores kernel the same way at the entry shape, the
+   bench shape and a mixed batch (zero-length and out-of-band rows);
+   its sample is held against the native ``global_alignment`` score;
+3. entry phase: ``trust4_tpu_torch.entry.entry(device="cuda")`` (the
+   prefilter and the scores kernel) against the same step with the plain
+   DP on the card;
+4. gold phase: the paired-end gold reads through ``run_trust4`` on the
    card in check mode with the stand-in references; every artifact must
    equal tests/data/gold_*;
-4. scale phase: a 500k-read bulk corpus (tools/make_bench_corpus.py) run
+5. scale phase: a 500k-read bulk corpus (tools/make_bench_corpus.py) run
    on the card with the default settings (the main path: launches counted
    from 0 around it) and again with TRUST4_TPU_DEVICE=0; the artifacts
    must be byte-identical and the kernel must have launched; a third
-   card run under torch.profiler gives the device's busy and idle share.
+   card run under torch.profiler gives the device's busy and idle share;
+6. realign phase: the scale run's own candidate reads and contigs, with
+   the stand-in coordinate FASTA as germline, through ``realign_round``
+   on the card (launches counted from 0 around it); its five outputs must
+   equal the same round with the plain DP on the card, and on a sample
+   the round on the CPU;
+7. prefilter phase: a 20,000-read corpus through ``run_trust4`` with
+   ``use_tpu_prefilter=True`` on the card and with the default native
+   extractor; every artifact must be byte-identical.
 
 It prints one ``{"kernels": [...]}`` line, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -59,15 +72,26 @@ ARTIFACTS = ("_raw.out", "_assembled_reads.fa", "_final.out", "_annot.fa",
              "_cdr3.out")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
-# 3.35 TB/s; int32 ALU ops at 132 SMs x 64 INT32 lanes x 1.98 GHz boost.
+# 3.35 TB/s; int32 operations at the SM's issue ceiling, 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz boost.  (The 64 INT32 lanes per SM
+# are not the ceiling: the scores kernel's compiled loop ran faster than
+# they allow, so part of its integer work issues to other lanes.)
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations one band cell needs (dp_counts.cuh: the score
-# recurrence with its four tie bits, and the CM/CE/CF count recurrences).
-OPS_PER_CELL = 40
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# int32 operations the function needs per band cell (see _band_cells),
+# counted from the recurrence (AlignAlgo.hpp GlobalAlignment), not from a
+# kernel's masked W-wide sweep.  Scores: match test 3 (compare, N test on
+# the text base, or; the query base's N test is per row), substitution
+# select 1, diagonal add 1, E = max(E+GE, M+GO+GE) 3, F likewise 3,
+# M = max of three 2: 13.
+SCORE_OPS_PER_CELL = 13
+# Counts (dp_counts.cuh): the score's 13, four tie compares, CM 4
+# (increment select, add, two selects), CE 2 and CF 2 (select, add): 25.
+OPS_PER_CELL = 25
 N_TIMED = 15
 N_SAMPLE = 2000
 SCALE_READS = 500_000
+PREFILTER_READS = 20_000
 
 
 def card_line() -> str:
@@ -96,6 +120,57 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
+    for name in build.kernel_names():
+        print(f"  sass {name}: instructions per tile cell of the row loop "
+              f"by W {json.dumps(_sass_per_cell(build.library_path(name)))}")
+
+
+def _sass_per_cell(lib: str) -> dict:
+    """{W: instructions per tile cell} of each kernel instance in a built
+    library: the SASS instructions (cuobjdump) inside the function's
+    widest backward branch, its row loop, over W.  The kernels sweep all
+    W cells of a row, so this is what they issue per tile cell, beside
+    the operations the function needs per band cell (OPS_PER_CELL,
+    SCORE_OPS_PER_CELL)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        w = int(re.search(r"ILi(\d+)E", fn).group(1))
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        loops = [(int(t, 16), a) for a, op in ins
+                 for t in re.findall(r"BRA\s+0x([0-9a-f]+)", op)
+                 if int(t, 16) < a]
+        lo, hi = max(loops, key=lambda x: x[1] - x[0])
+        out[w] = round(sum(lo <= a <= hi for a, _ in ins) / w, 2)
+    return dict(sorted(out.items()))
+
+
+def _band_cells(t_lens, p_lens, w: int, p_max: int) -> int:
+    """Band cells the function needs, from this run's lengths: for each
+    pair whose final cell lies in the W-cell tile, the cells of rows
+    1..min(p_len, p_max) at columns 1 <= j <= t_len within the band
+    i-left <= j <= i+right (and the tile).  A pair whose final cell lies
+    outside the tile needs none (its score is INT32_MIN).  The kernels
+    sweep all W tile cells of every row; the cells beyond the band are
+    their overhead, not work the function needs."""
+    total = 0
+    for s in range(0, len(t_lens), 8192):  # bounded temporaries
+        tl = t_lens[s:s + 8192].astype(np.int64)[:, None]
+        pl = p_lens[s:s + 8192].astype(np.int64)[:, None]
+        left = 5 + np.maximum(0, pl - tl)
+        right = 5 + np.maximum(0, tl - pl)
+        in_tile = (tl - pl + left >= 0) & (tl - pl + left < w)
+        i = np.arange(1, p_max + 1, dtype=np.int64)[None, :]
+        lo = np.maximum(1, i - left)
+        hi = np.minimum(np.minimum(tl, i + right), i - left + w - 1)
+        cnt = np.clip(hi - lo + 1, 0, None) * (i <= pl) * in_tile
+        total += int(cnt.sum())
+    return total
 
 
 def _median_ms(fn, n: int) -> float:
@@ -157,8 +232,8 @@ def phase_kernels():
                     f"tier ({cap},{w}) job {i}: kernel {got} vs native {want}"
                 )
         rec = {"cap": cap, "w": w, "chunk": chunk}
-        rows = np.minimum(pl, cap).astype(np.int64)
-        rec["cells"] = int(rows.sum()) * w
+        rec["tile_cells"] = int(np.minimum(pl, cap).astype(np.int64).sum()) * w
+        rec["cells"] = _band_cells(tl, pl, w, cap)
         rec["bytes"] = int(tc.nbytes + pc.nbytes + 8 * chunk + 16 * chunk)
         rec["bound_ms"] = 1e3 * max(rec["bytes"] / HBM_BYTES_PER_S,
                                     rec["cells"] * OPS_PER_CELL
@@ -179,6 +254,264 @@ def phase_kernels():
         print(f"kernel tier {json.dumps(rec)}", flush=True)
         records.append(rec)
     return records
+
+
+def _score_inputs(shape: str):
+    """numpy (t_codes, t_lens, p_codes, p_lens) of one scores shape: the
+    entry step's pairs, bench.py's launch (the text row doubles as the
+    query, bench.py:334-337), or a mixed 65,536-pair batch inside
+    band_ok with N bases, some zero-length rows and some rows with
+    t_len - p_len >= W-5 (final cell outside the band: INT32_MIN)."""
+    if shape == "entry":
+        rng = np.random.default_rng(1)
+        tc = rng.integers(0, 4, size=(256, 128), dtype=np.int8)
+        pc = rng.integers(0, 4, size=(256, 128), dtype=np.int8)
+        return tc, np.full(256, 120, np.int32), pc, np.full(256, 118, np.int32)
+    if shape == "bench":
+        rng = np.random.default_rng(0)
+        tc = rng.integers(0, 4, size=(65536, 152), dtype=np.int8)
+        return tc, np.full(65536, 150, np.int32), tc, np.full(65536, 148,
+                                                              np.int32)
+    n, cap, w = 65536, 152, 32
+    rng = np.random.default_rng(2)
+    tc = rng.integers(0, 4, size=(n, cap), dtype=np.int8)
+    tl = rng.integers(1, cap + 1, n).astype(np.int32)
+    pl = np.clip(tl + rng.integers(-(w - 11), w - 10, n), 0, cap)
+    pc = tc.copy()
+    sub = rng.random((n, cap)) < 0.05
+    pc[sub] = rng.integers(0, 5, int(sub.sum()))
+    tc[rng.random((n, cap)) < 0.01] = 4
+    pl = pl.astype(np.int32)
+    z = rng.choice(n, 600, replace=False)
+    tl[z[:300]] = 0
+    pl[z[300:]] = 0
+    far = rng.choice(n, 600, replace=False)
+    tl[far] = cap
+    pl[far] = cap - (w - 5) - rng.integers(0, 40, len(far))
+    for codes, lens in ((tc, tl), (pc, pl)):  # pad beyond each length
+        codes[np.arange(cap)[None, :] >= lens[:, None]] = 5
+    return tc, tl, pc, pl
+
+
+def phase_scores():
+    """The scores kernel against its plain version at the entry shape,
+    the bench shape and the mixed batch.  Returns the per-shape records."""
+    from trust4_tpu_torch.align.native import global_alignment
+    from trust4_tpu_torch.ops import dp_scores
+    from trust4_tpu_torch.ops.dp import band_ok, banded_affine_scores_plain
+    from trust4_tpu_torch.ops.dp_counts import to_device_jobs
+
+    dev = torch.device("cuda")
+    w = 32
+    records = []
+    for shape in ("entry", "bench", "mixed"):
+        tc, tl, pc, pl = _score_inputs(shape)
+        args = to_device_jobs(tc, tl, pc, pl, dev)
+        s_k = dp_scores.banded_affine_scores(*args, w)
+        s_p = banded_affine_scores_plain(*args, w)
+        torch.cuda.synchronize()
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(
+                f"scores {shape}: kernel differs from the plain version in "
+                f"{int((s_k != s_p).sum())} pairs"
+            )
+        got = s_k.cpu().numpy()
+        rng = np.random.default_rng(7)
+        ok = np.flatnonzero(band_ok(tl, pl, w) & (tl > 0) & (pl > 0))
+        alphabet = np.frombuffer(b"ACGTNN", np.uint8)
+        for i in rng.choice(ok, min(N_SAMPLE, len(ok)), replace=False):
+            t = alphabet[tc[i, : tl[i]]].tobytes().decode()
+            p = alphabet[pc[i, : pl[i]]].tobytes().decode()
+            want = global_alignment(t, p)[0]
+            if got[i] != want:
+                raise AssertionError(
+                    f"scores {shape} pair {i}: kernel {got[i]} vs native "
+                    f"{want}")
+        rows = np.minimum(pl, pc.shape[1]).astype(np.int64)
+        rec = {"shape": shape, "n": len(tl), "t_max": tc.shape[1],
+               "p_max": pc.shape[1], "w": w,
+               "int32_min_rows": int((got == np.iinfo(np.int32).min).sum()),
+               "tile_cells": int(rows.sum()) * w,
+               "cells": _band_cells(tl, pl, w, pc.shape[1]),
+               "bytes": int(tc.nbytes + pc.nbytes + 12 * len(tl))}
+        ops_s = rec["cells"] * SCORE_OPS_PER_CELL / INT32_OPS_PER_S
+        bytes_s = rec["bytes"] / HBM_BYTES_PER_S
+        rec["bound_ms"] = 1e3 * max(ops_s, bytes_s)
+        rec["bound_by"] = "bytes" if bytes_s > ops_s else "operations"
+        rec["max_abs_err"] = int((s_k.long() - s_p.long()).abs().max())
+        rec["ms"] = _median_ms(
+            lambda: dp_scores.banded_affine_scores(*args, w), N_TIMED)
+        rec["plain_ms"] = _median_ms(
+            lambda: banded_affine_scores_plain(*args, w), N_TIMED)
+        rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["cells_per_s"] = rec["cells"] / (rec["ms"] * 1e-3)
+        print(f"scores kernel {json.dumps(rec)}", flush=True)
+        records.append(rec)
+    return records
+
+
+@contextlib.contextmanager
+def _plain_scores():
+    """ops/dp_scores ``banded_affine_scores`` swapped for its plain
+    version while the block runs (entry and realign_round look it up at
+    call time), so a path can be held against itself with the plain DP."""
+    from trust4_tpu_torch.ops import dp_scores
+    from trust4_tpu_torch.ops.dp import banded_affine_scores_plain
+
+    kernel = dp_scores.banded_affine_scores
+    dp_scores.banded_affine_scores = banded_affine_scores_plain
+    try:
+        yield
+    finally:
+        dp_scores.banded_affine_scores = kernel
+
+
+def phase_entry() -> int:
+    """``entry(device="cuda")`` on the card, launches counted from 0
+    around it, against the same step with the plain DP; returns the
+    launches."""
+    from trust4_tpu_torch.entry import entry
+    from trust4_tpu_torch.ops import dp_scores
+
+    fn, args = entry(device="cuda")
+    dp_scores.LAUNCHES = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = dp_scores.LAUNCHES
+    with _plain_scores():
+        want = fn(*args)
+    if not torch.equal(out, want):
+        raise AssertionError("entry: kernel step differs from the plain step")
+    if launches == 0:
+        raise AssertionError("entry: the scores kernel never launched")
+    print(f"entry: {tuple(out.shape)} {out.dtype}, equal to the plain step, "
+          f"{int((out != -(1 << 29)).sum())} pairs pass the prefilter, "
+          f"launches={launches}", flush=True)
+    return launches
+
+
+def _fasta_seqs(path: str):
+    seqs, cur = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                if cur:
+                    seqs.append("".join(cur))
+                cur = []
+            else:
+                cur.append(line.strip().upper())
+    if cur:
+        seqs.append("".join(cur))
+    return seqs
+
+
+def phase_realign(card_prefix: str, coord: str) -> int:
+    """The realign round on the scale run's own card outputs; returns the
+    launches of the card run."""
+    from trust4_tpu_torch.io.fastx import read_fastx
+    from trust4_tpu_torch.ops import dp_scores
+    from trust4_tpu_torch.parallel import default_chunk, realign_round
+
+    reads = [r.seq for r in read_fastx(card_prefix + "_toassemble.fq")]
+    contigs = []
+    with open(card_prefix + "_final.out") as f:
+        for line in f:
+            if line.startswith(">"):
+                contigs.append(next(f).strip())
+    germ = _fasta_seqs(coord)
+    if len(reads) < 1000 or len(contigs) < 10:
+        raise AssertionError(
+            f"realign: too little work ({len(reads)} reads, {len(contigs)} "
+            "contigs)")
+    names = ("cand", "scores", "ids", "posWeight", "n_cand")
+
+    def same(a, b, what):
+        for name, x, y in zip(names, a, b):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"realign: {name} differ, {what}")
+
+    dp_scores.LAUNCHES = 0
+    t0 = time.perf_counter()
+    card = realign_round(reads, contigs, germ, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dp_scores.LAUNCHES
+    if launches == 0:
+        raise AssertionError("realign: the scores kernel never launched")
+    with _plain_scores():
+        plain = realign_round(reads, contigs, germ, device="cuda")
+    same(card, plain, "kernel vs plain DP on the card")
+    sample = reads[:N_SAMPLE]
+    same(realign_round(sample, contigs, germ, device="cuda"),
+         realign_round(sample, contigs, germ, device="cpu"),
+         f"card vs cpu on {len(sample)} reads")
+    n_win = max(max(len(r) for r in reads), 9) - 9 + 1
+    rec = {"reads": len(reads), "contigs": len(contigs),
+           "candidates": card[4],
+           "scored": int((card[1] > -(1 << 30)).sum()),
+           "chunk": min(default_chunk(len(contigs), n_win), len(reads)),
+           "launches": launches, "wall_s": wall,
+           "cpu_sample": len(sample)}
+    print(f"realign: bit-equal to the plain DP and to the CPU sample "
+          f"{json.dumps(rec)}", flush=True)
+    return launches
+
+
+def phase_prefilter(work: str, coord: str, imgt: str) -> dict:
+    """A 20k-read corpus through run_trust4 with the prefilter on the
+    card and with the default native extractor: byte-identical artifacts.
+    Returns the survivor share and the prefilter's card time."""
+    from tools.make_bench_corpus import make_corpus
+    from trust4_tpu_torch.engine.seqset import SeqSet
+    from trust4_tpu_torch.io.fastx import read_fastx
+    from trust4_tpu_torch.ops import prefilter
+    from trust4_tpu_torch.ops.encode import pack_reads, window_codes_batch
+    from trust4_tpu_torch.pipeline.extract import compute_hit_len_required
+
+    fq = os.path.join(work, "pf.fq")
+    make_corpus(fq, n_reads=PREFILTER_READS, seed=20261016, ref_fa=coord)
+    kw = dict(coord_fasta=coord, imgt_fasta=imgt, single_files=[fq],
+              threads=os.cpu_count() or 1)
+    runs = {}
+    for tag, on in (("pf_card", True), ("pf_native", False)):
+        os.makedirs(os.path.join(work, tag))
+        prefilter.reset_stats()
+        runs[tag] = _run(os.path.join(work, tag, "pf"), device="cuda",
+                         use_tpu_prefilter=on, **kw)
+        runs[tag]["prefilter"] = dict(prefilter.STATS)
+    for suf in ("_toassemble.fq",) + ARTIFACTS + ("_report.tsv",
+                                                   "_airr.tsv"):
+        a = os.path.join(work, "pf_card", "pf" + suf)
+        b = os.path.join(work, "pf_native", "pf" + suf)
+        if not filecmp.cmp(a, b, shallow=False):
+            raise AssertionError(f"prefilter phase: {suf} differs")
+    st = runs["pf_card"]["prefilter"]
+    if st["reads"] != PREFILTER_READS:
+        raise AssertionError(f"prefilter phase: tested {st['reads']} reads")
+
+    # The prefilter's card time: one extractor batch through the kernel.
+    ss = SeqSet(9)
+    ss.input_ref_fa(coord)
+    reads = [r.seq for r in read_fastx(fq)][:16384]
+    pf = prefilter.TpuPrefilter([sw.consensus for sw in ss.seqs], k=9,
+                                hit_len_required=compute_hit_len_required(
+                                    fq, False), device="cuda")
+    mat = pack_reads(reads, 128)
+    codes, valid = window_codes_batch(mat, 9)
+    cd = torch.from_numpy(codes).cuda()
+    vd = torch.from_numpy(valid).cuda()
+    batch_ms = _median_ms(lambda: prefilter.seq_count_prefilter_kernel(
+        cd, vd, *pf.tables, 9, pf.hit_len_required, pf.radius), N_TIMED)
+    rec = {"reads": st["reads"], "batches": st["batches"],
+           "survivor_share": st["passed"] / st["reads"],
+           "batch_reads": len(reads), "batch_ms": batch_ms,
+           "card_ms_est": batch_ms * st["batches"],
+           "extract_s": {t: r["stages_s"].get("extract") for t, r in
+                         runs.items()},
+           "wall_s": {t: r["wall_s"] for t, r in runs.items()}}
+    print(f"prefilter: artifacts byte-identical {json.dumps(rec)}",
+          flush=True)
+    return rec
 
 
 class _Tee(io.TextIOBase):
@@ -324,6 +657,8 @@ def main() -> int:
     print(card, flush=True)
     phase_build()
     tiers = phase_kernels()
+    shapes = phase_scores()
+    entry_launches = phase_entry()
 
     from trust4_tpu_torch.testing import write_standin_references
 
@@ -332,12 +667,17 @@ def main() -> int:
         coord, imgt = write_standin_references(os.path.join(work, "ref"))
         phase_gold(work, coord, imgt)
         scale = phase_scale(work, coord, imgt, SCALE_READS)
+        realign_launches = phase_realign(
+            os.path.join(work, "card", "bulk"), coord)
+        phase_prefilter(work, coord, imgt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # The kernel line reports the largest tier (the main path's heaviest
-    # launches); every tier is in "tiers".
+    # The kernel line reports the counts kernel's largest tier (the main
+    # path's heaviest launches; every tier is in "tiers") and the scores
+    # kernel's bench shape (every shape is in "shapes").
     top = tiers[-1]
+    bench = shapes[1]
     kernels = [{
         "name": "dp_counts",
         "route": "cuda",
@@ -353,6 +693,21 @@ def main() -> int:
         "tiers": [{k: t[k] for k in ("cap", "w", "chunk", "ms",
                                      "packed_ms", "plain_ms", "bound_ms",
                                      "cells_per_s")} for t in tiers],
+    }, {
+        "name": "dp_scores",
+        "route": "cuda",
+        "source": "trust4_tpu_torch/csrc/dp_scores.cu",
+        "replaces": "trust4_tpu/ops/dp_pallas.py:55",
+        "launches": entry_launches + realign_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": bench["ms"],
+        "plain_ms": bench["plain_ms"],
+        "bound_ms": bench["bound_ms"],
+        "bound_by": bench["bound_by"],
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in ("shape", "n", "t_max", "p_max", "w",
+                                      "ms", "plain_ms", "bound_ms",
+                                      "cells_per_s")} for r in shapes],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,17 +4,21 @@ runs on the machine with the card:
 
     python -m pytest -m cuda tests/test_torch_card.py
 
-The kernel must be bit-equal to its plain PyTorch version (integer DP,
-tolerance 0), the wrapper must refuse what the kernel does not take, and
-the gap oracle on the card must give the CPU path's counts.
+Each kernel must be bit-equal to its plain PyTorch version (integer DP,
+tolerance 0), the wrappers must refuse what the kernels do not take, and
+the gap oracle, the prefilter, the realign round and ``entry`` on the
+card must give the CPU path's results.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from trust4_tpu_torch.ops import dp_counts, gap_oracle
-from trust4_tpu_torch.ops.dp import banded_affine_counts_plain
+from trust4_tpu_torch.ops import dp_counts, dp_scores, gap_oracle
+from trust4_tpu_torch.ops.dp import (
+    banded_affine_counts_plain,
+    banded_affine_scores_plain,
+)
 from trust4_tpu_torch.testing import rand_gap_jobs
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +90,65 @@ def test_gap_oracle_card_matches_cpu(card):
         on_card,
         gap_oracle.gap_counts(eng, reads, gap_jobs, sws, device="cpu"),
     )
+
+
+@pytest.mark.parametrize("w", dp_scores.BANDS)
+def test_scores_kernel_matches_plain(card, w):
+    """Random codes incl. N and pad, any lengths: in band, out of band
+    (INT32_MIN), zero-length rows."""
+    rng = np.random.default_rng(500 + w)
+    n, t_max, p_max = 4000, 152, 140
+    tc = rng.integers(0, 6, (n, t_max)).astype(np.int8)
+    pc = rng.integers(0, 6, (n, p_max)).astype(np.int8)
+    tl = rng.integers(0, t_max + 1, n).astype(np.int32)
+    pl = np.clip(tl + rng.integers(-w, w, n), 0, p_max).astype(np.int32)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    launches = dp_scores.LAUNCHES
+    got = dp_scores.banded_affine_scores(*args, w)
+    torch.cuda.synchronize()
+    assert dp_scores.LAUNCHES == launches + 1
+    assert torch.equal(got, banded_affine_scores_plain(*args, w))
+
+
+def test_scores_wrapper_checks_inputs(card):
+    tc = torch.zeros((4, 16), dtype=torch.int8, device=card)
+    tl = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="band_width"):
+        dp_scores.banded_affine_scores(tc, tl, tc, tl, 20)
+    with pytest.raises(TypeError):
+        dp_scores.banded_affine_scores(tc.int(), tl, tc, tl, 32)
+    with pytest.raises(ValueError, match="one device"):
+        dp_scores.banded_affine_scores(tc, tl.cpu(), tc, tl, 32)
+
+
+def test_entry_card_matches_cpu(card):
+    from trust4_tpu_torch.entry import entry
+
+    fn, args = entry(device="cuda")
+    launches = dp_scores.LAUNCHES
+    got = fn(*args).cpu()
+    assert dp_scores.LAUNCHES == launches + 1
+    fn_c, args_c = entry(device="cpu")
+    assert torch.equal(got, fn_c(*args_c))
+
+
+def test_prefilter_and_realign_card_match_cpu(card):
+    from trust4_tpu_torch.ops.prefilter import TpuPrefilter
+    from trust4_tpu_torch.parallel import realign_round
+
+    rng = np.random.default_rng(77)
+    germ = ["".join(rng.choice(list("ACGT"), 400)) for _ in range(30)]
+    reads = ["".join(rng.choice(list("ACGT"), 100)) for _ in range(200)]
+    reads += [g[i : i + 100] for g in germ[:10] for i in (0, 150, 290)]
+    contigs = [g[50:350] for g in germ[:12]]
+    for hit_len in (23, 80):
+        masks = [TpuPrefilter(germ, hit_len_required=hit_len, device=d)(
+            reads, pad_len=100) for d in ("cuda", "cpu")]
+        np.testing.assert_array_equal(*masks)
+    launches = dp_scores.LAUNCHES
+    on_card = realign_round(reads, contigs, germ, device="cuda", chunk=64)
+    assert dp_scores.LAUNCHES > launches
+    on_cpu = realign_round(reads, contigs, germ, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert on_cpu[4] > 0 and (on_cpu[1] > -(1 << 29)).sum() > 0

@@ -147,9 +147,23 @@ def test_cli_device_flag_and_prefilter(monkeypatch):
             "-2", "b.fq"]
     assert cli.main(base) == 0 and seen["device"] == "cuda"
     assert cli.main(base + ["--device", "cpu"]) == 0
-    assert seen["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="tpuPrefilter"):
-        cli.main(base + ["--tpuPrefilter"])
+    assert seen["device"] == "cpu" and seen["use_tpu_prefilter"] is False
+    assert cli.main(base + ["--tpuPrefilter", "--device", "cpu"]) == 0
+    assert seen["use_tpu_prefilter"] is True and seen["device"] == "cpu"
+
+    from trust4_tpu_torch.pipeline import extract
+
+    for fn in ("run_extractor", "run_barcoded_extractor"):
+        monkeypatch.setattr(extract, fn,
+                            lambda *a, _fn=fn, **kw: seen.update(kw, fn=_fn))
+    assert cli.main(["extract", "-f", "coord.fa", "-u", "r.fq",
+                     "--tpuPrefilter"]) == 0
+    assert seen["fn"] == "run_extractor" and seen["device"] == "cuda"
+    assert cli.main(["extract", "-f", "coord.fa", "-u", "r.fq",
+                     "--readFormat", "bc:0:15", "--tpuPrefilter",
+                     "--device", "cpu"]) == 0
+    assert seen["fn"] == "run_barcoded_extractor"
+    assert seen["use_tpu_prefilter"] is True and seen["device"] == "cpu"
     with pytest.raises(SystemExit):
         cli.main(base + ["--device", "tpu"])
 

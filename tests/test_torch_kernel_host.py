@@ -1,11 +1,12 @@
-"""The CUDA kernel's arithmetic, run on the CPU.
+"""The CUDA kernels' arithmetic, run on the CPU.
 
-csrc/dp_counts.cuh holds the per-job DP of the counts kernel as
-``__host__ __device__`` code with no CUDA headers.  g++ builds it here,
-with both qualifiers defined empty, into a small host library; its
-per-job function must equal the plain PyTorch version (and so the JAX
-package) bit for bit, in both epilogues.  This is the only place the
-kernel's own arithmetic runs without a card.
+csrc/dp_counts.cuh and csrc/dp_scores.cuh hold the per-job DP of the
+counts and scores kernels as ``__host__ __device__`` code with no CUDA
+headers.  g++ builds them here, with both qualifiers defined empty, into
+a small host library; each per-job function must equal its plain PyTorch
+version (and so the JAX package) bit for bit, the counts in both
+epilogues.  This is the only place the kernels' own arithmetic runs
+without a card.
 """
 
 import ctypes
@@ -18,12 +19,16 @@ import pytest
 import torch
 
 from trust4_tpu_torch.ops.build import CSRC_DIR
-from trust4_tpu_torch.ops.dp import banded_affine_counts_plain
+from trust4_tpu_torch.ops.dp import (
+    banded_affine_counts_plain,
+    banded_affine_scores_plain,
+)
 from trust4_tpu_torch.testing import rand_gap_jobs
 
 _SHIM = r"""
 #include <cstddef>
 #include "dp_counts.cuh"
+#include "dp_scores.cuh"
 
 template <int W>
 static void run(const int8_t* t, const int32_t* tl, const int8_t* p,
@@ -43,6 +48,28 @@ extern "C" int host_dp_counts(const int8_t* t, const int32_t* tl,
     case 16: run<16>(t, tl, p, pl, n, t_max, p_max, scores, packed); return 0;
     case 24: run<24>(t, tl, p, pl, n, t_max, p_max, scores, packed); return 0;
     case 48: run<48>(t, tl, p, pl, n, t_max, p_max, scores, packed); return 0;
+  }
+  return 1;
+}
+
+template <int W>
+static void run_scores(const int8_t* t, const int32_t* tl, const int8_t* p,
+                       const int32_t* pl, int n, int t_max, int p_max,
+                       int32_t* scores) {
+  for (int b = 0; b < n; ++b)
+    scores[b] = t4dp::dp_scores_job<W>(t + (size_t)b * t_max, t_max,
+                                       p + (size_t)b * p_max, p_max, tl[b],
+                                       pl[b]);
+}
+
+extern "C" int host_dp_scores(const int8_t* t, const int32_t* tl,
+                              const int8_t* p, const int32_t* pl, int n,
+                              int t_max, int p_max, int w, int32_t* scores) {
+  switch (w) {
+    case 16: run_scores<16>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+    case 24: run_scores<24>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+    case 32: run_scores<32>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+    case 48: run_scores<48>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
   }
   return 1;
 }
@@ -67,6 +94,8 @@ def host_lib(tmp_path_factory):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.host_dp_counts.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 2
     lib.host_dp_counts.restype = ci
+    lib.host_dp_scores.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.host_dp_scores.restype = ci
     return lib
 
 
@@ -122,3 +151,41 @@ def test_cuda_source_includes_the_tested_header():
         src = f.read()
     assert '#include "dp_counts.cuh"' in src
     assert "t4dp::dp_counts_job<W>" in src
+
+
+def _host_scores(lib, tc, tl, pc, pl, w):
+    tc, pc = np.ascontiguousarray(tc), np.ascontiguousarray(pc)
+    tl, pl = np.ascontiguousarray(tl), np.ascontiguousarray(pl)
+    scores = np.empty(len(tl), np.int32)
+    rc = lib.host_dp_scores(
+        tc.ctypes.data, tl.ctypes.data, pc.ctypes.data, pl.ctypes.data,
+        len(tl), tc.shape[1], pc.shape[1], w, scores.ctypes.data,
+    )
+    assert rc == 0
+    return scores
+
+
+@pytest.mark.parametrize("t_max,p_max,w", [(40, 40, 16), (60, 52, 24),
+                                           (128, 128, 32), (152, 152, 32),
+                                           (10, 60, 48), (60, 10, 32),
+                                           (0, 7, 32), (7, 0, 16)])
+def test_scores_header_matches_plain(host_lib, t_max, p_max, w):
+    """Random codes incl. N and pad, lengths from 0 to the width: in band,
+    out of band (INT32_MIN), zero-length rows and empty widths."""
+    rng = np.random.default_rng(t_max * 11 + p_max + w)
+    n = 300
+    tc = rng.integers(0, 6, (n, t_max)).astype(np.int8)
+    pc = rng.integers(0, 6, (n, p_max)).astype(np.int8)
+    tl = rng.integers(0, t_max + 1, n).astype(np.int32)
+    pl = rng.integers(0, p_max + 1, n).astype(np.int32)
+    want = banded_affine_scores_plain(
+        *[torch.from_numpy(a) for a in (tc, tl, pc, pl)], w).numpy()
+    np.testing.assert_array_equal(_host_scores(host_lib, tc, tl, pc, pl, w),
+                                  want)
+
+
+def test_scores_cuda_source_includes_the_tested_header():
+    with open(os.path.join(CSRC_DIR, "dp_scores.cu")) as f:
+        src = f.read()
+    assert '#include "dp_scores.cuh"' in src
+    assert "t4dp::dp_scores_job<W>" in src

@@ -9,8 +9,9 @@ Subcommands (reference binaries in parentheses):
 
 Usage: python -m trust4_tpu_torch <subcommand> [options]
 
-The gap-fill DP runs on the CUDA card unless `run --device cpu` asks for
-the plain PyTorch version.
+The gap-fill DP and the `--tpuPrefilter` extraction prefilter run on the
+CUDA card unless `--device cpu` (on `run` and `extract`) asks for their
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -85,15 +86,12 @@ def cmd_run(argv) -> int:
     p.add_argument("--outputReadAssignment", action="store_true")
     p.add_argument("--clean", type=int, default=0)
     p.add_argument("--tpuPrefilter", action="store_true",
-                   help="use the device membership prefilter for extraction "
-                   "(not ported yet)")
+                   help="put the device cluster prefilter before the exact "
+                   "candidate filter in extraction")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device of the gap-fill DP (default cuda)")
+                   help="torch device of the gap-fill DP and the prefilter "
+                   "(default cuda)")
     args = p.parse_args(argv)
-    if args.tpuPrefilter:
-        raise NotImplementedError(
-            "--tpuPrefilter: the membership prefilter is not ported yet"
-        )
     args.read1 = _flatfiles(args.read1)
     args.read2 = _flatfiles(args.read2)
     args.single = _flatfiles(args.single)
@@ -186,12 +184,11 @@ def cmd_extract(argv) -> int:
     p.add_argument("--barcodeWhitelist", default=None)
     p.add_argument("--barcodeTranslate", default=None)
     p.add_argument("--tpuPrefilter", action="store_true",
-                   help="not ported yet")
+                   help="put the device cluster prefilter before the exact "
+                   "candidate filter")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the prefilter (default cuda)")
     args = p.parse_args(argv)
-    if args.tpuPrefilter:
-        raise NotImplementedError(
-            "--tpuPrefilter: the membership prefilter is not ported yet"
-        )
     args.read1 = _flatfiles(args.read1)
     args.read2 = _flatfiles(args.read2)
     args.single = _flatfiles(args.single)
@@ -214,11 +211,13 @@ def cmd_extract(argv) -> int:
             barcode_whitelist=args.barcodeWhitelist,
             barcode_translate=args.barcodeTranslate,
             use_tpu_prefilter=args.tpuPrefilter,
+            device=args.device,
         )
     else:
         run_extractor(
             args.ref, r1, r2, args.prefix,
             use_tpu_prefilter=args.tpuPrefilter,
+            device=args.device,
         )
     return 0
 

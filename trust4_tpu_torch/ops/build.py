@@ -40,6 +40,9 @@ _SIGNATURES = {
     "dp_counts": {
         "t4_dp_counts": ([_VP] * 4 + [_CI] * 5 + [_VP] * 3, _CI),
     },
+    "dp_scores": {
+        "t4_dp_scores": ([_VP] * 4 + [_CI] * 4 + [_VP] * 2, _CI),
+    },
 }
 
 # name -> seconds its nvcc took in this process, and its compiler output

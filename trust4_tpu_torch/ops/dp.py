@@ -1,11 +1,18 @@
-"""Plain PyTorch banded affine-gap DP with forward traceback counts.
+"""Plain PyTorch banded affine-gap DP: scores, and scores with forward
+traceback counts.
 
-The plain version of the gap-fill counts kernel (csrc/dp_counts.cu): the
-tests hold it against the JAX package, the CPU path runs it, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.  It is a
-line-for-line mirror of ``banded_affine_counts_xla``
-(trust4_tpu/ops/dp_pallas.py), itself bit-equal to the Pallas kernel
-``_dp_counts_kernel``: GlobalAlignment semantics (reference:
+``banded_affine_scores_plain`` is the plain version of the scores kernel
+(csrc/dp_scores.cu) and the semantic spec of the final-score DP: a
+line-for-line mirror of trust4_tpu's XLA ``banded_affine_scores``
+(trust4_tpu/ops/dp_batch.py), to which the Pallas kernel ``_dp_kernel``
+is bit-equal inside the band contract ``band_ok``.
+
+``banded_affine_counts_plain`` is the plain version of the gap-fill counts
+kernel (csrc/dp_counts.cu): the tests hold it against the JAX package,
+the CPU path runs it, and ``chip_smoke.py`` holds the CUDA kernel against
+it on the card.  It is a line-for-line mirror of
+``banded_affine_counts_xla`` (trust4_tpu/ops/dp_pallas.py), itself
+bit-equal to the Pallas kernel ``_dp_counts_kernel``: GlobalAlignment semantics (reference:
 AlignAlgo.hpp:218-424) with match +2, mismatch -2, gap open -4, extend -1,
 N matching any base, band ``left = 5+max(0,p-t)``, ``right = 5+max(0,t-p)``
 and the stale ``e[0][j]`` seed; the traceback walker's (match, mismatch,
@@ -73,6 +80,111 @@ def shift_hi_bucket(w: int) -> int:
         if left_max <= b:
             return b
     return left_max
+
+
+def band_ok(t_lens: np.ndarray, p_lens: np.ndarray,
+            band_width: int) -> np.ndarray:
+    """Pairs whose reference band fits in the static tile (where the
+    Pallas scores kernel equals the XLA function)."""
+    diff = np.abs(t_lens.astype(np.int64) - p_lens.astype(np.int64))
+    return 11 + diff <= band_width
+
+
+def banded_affine_scores_plain(
+    t_codes: torch.Tensor,  # (N, T) int8
+    t_lens: torch.Tensor,  # (N,) int32
+    p_codes: torch.Tensor,  # (N, P) int8
+    p_lens: torch.Tensor,  # (N,) int32
+    band_width: int,
+) -> torch.Tensor:
+    """(N,) int32 final ``m[p_len][t_len]`` of each pair, bit-equal to
+    trust4_tpu's XLA ``banded_affine_scores`` on the same inputs, any band
+    width.  Where the final cell lies outside the band (``t_len - p_len >=
+    band_width - 5``) the XLA gather reads out of range and returns
+    INT32_MIN; so does this function.  Rows beyond ``p_len`` are frozen,
+    so zero-length pairs give the column-0 / row-0 boundary values."""
+    n, t_max = t_codes.shape
+    p_max = p_codes.shape[1]
+    w = band_width
+    dev = t_codes.device
+    i32 = torch.int32
+    go, ge = SCORE_GAPOPEN, SCORE_GAPEXTEND
+    go_ge = go + ge
+    big_neg = _BIG_NEG
+
+    def where(c, a, b):
+        return torch.where(c, a, b).to(i32)
+
+    tl = t_lens.to(i32)
+    pl = p_lens.to(i32)
+    left = where(tl < pl, 5 + (pl - tl), 5)
+    right = where(tl > pl, 5 + (tl - pl), 5)
+    neg_inf = ((tl + 1) * (pl + 1) * go)[:, None]  # (N, 1)
+
+    k_idx = torch.arange(w, dtype=i32, device=dev)[None, :]  # (1, W)
+    j0 = k_idx - left[:, None]
+    in_t0 = (j0 >= 0) & (j0 <= tl[:, None])
+    m0 = where(j0 == 0, 0, where(j0 > 0, go + j0 * go, big_neg))
+    # Reference quirk: e[0][j] is seeded with the stale loop variable
+    # lenp+1 (AlignAlgo.hpp:271).
+    e0 = where(j0 == 0, 0,
+               where(j0 > 0, go + (pl[:, None] + 1) * go, big_neg))
+    m = where(in_t0, m0, neg_inf)
+    e = where(in_t0, e0, neg_inf)
+
+    # The XLA gather clips the text column into [0, t_max-1]; with an
+    # empty text no cell is in band, so a pad column stands in.
+    if t_max == 0:
+        t_codes = torch.full((n, 1), _CODE_PAD, dtype=torch.int8, device=dev)
+    tci = t_codes.long()
+    t_hi = max(t_max - 1, 0)
+    pci = p_codes.to(i32)
+    bn_col = torch.full((n, 1), big_neg, dtype=i32, device=dev)
+
+    def shift(x):  # band neighbour k+1 of the previous row
+        return torch.cat([x[:, 1:], bn_col], dim=1)
+
+    for i in range(1, p_max + 1):
+        j_row = i - left[:, None] + k_idx
+        in_band = (
+            (j_row >= 1)
+            & (j_row <= tl[:, None])
+            & (j_row <= i + right[:, None])
+        )
+        in_dp_row = (i <= pl)[:, None]
+
+        tj = torch.gather(tci, 1, torch.clamp(j_row - 1, 0, t_hi).long())
+        pi = pci[:, i - 1 : i]
+        eq = (tj == pi) | (tj == _CODE_N) | (pi == _CODE_N)
+        sub = where(eq, SCORE_MATCH, SCORE_MISMATCH)
+
+        m_up = shift(m)
+        e_new = torch.maximum(shift(e) + ge, m_up + go_ge)
+        diag = m + sub
+
+        bound_m = go + i * go
+        base = torch.maximum(diag, e_new)
+        base = where(j_row == 0, bound_m, base)
+        base = where(in_band | (j_row == 0), base, big_neg)
+
+        # Horizontal gaps: exclusive running max over the band; the F
+        # seed at column 0 skips the gap open (host.py _affine_fill).
+        t_val = where(j_row == 0, bound_m, base + go) + k_idx * (-ge)
+        run = torch.cummax(t_val, dim=1).values
+        f_new = torch.cat([bn_col, run[:, :-1]], dim=1) - k_idx * (-ge)
+
+        m_new = torch.maximum(base, f_new)
+        m_new = where(in_band & in_dp_row, m_new, neg_inf)
+        m_new = where((j_row == 0) & in_dp_row, bound_m, m_new)
+        e_keep = where(in_band & in_dp_row, e_new, neg_inf)
+
+        m = where(in_dp_row, m_new, m)
+        e = where(in_dp_row, e_keep, e)
+
+    k_final = (tl - pl + left)[:, None].long()
+    inside = (k_final >= 0) & (k_final < w)
+    score = torch.gather(m, 1, torch.clamp(k_final, 0, w - 1))
+    return where(inside, score, torch.iinfo(i32).min)[:, 0]
 
 
 def unpack_counts(packed: torch.Tensor) -> torch.Tensor:

@@ -103,12 +103,15 @@ def extract_candidates(
     use_tpu_prefilter: bool = False,
     batch_size: int = 16384,
     threads: int = 1,
+    device: str = "cuda",
 ) -> Iterator[Tuple[FastxRecord, Optional[FastxRecord]]]:
     """Yield candidate read(-pair)s in input order.
 
-    With use_tpu_prefilter, read batches first pass the conservative TPU
-    membership sweep (trust4_tpu/ops/prefilter.py); only survivors run the
-    exact host filter, so the candidate set is bit-identical either way.
+    With use_tpu_prefilter, read batches first pass the conservative
+    device cluster prefilter (ops/prefilter.py ``TpuPrefilter``) on
+    ``device`` ("cuda", or "cpu" for the same torch program on the host);
+    only survivors run the exact host filter, so the candidate set is
+    bit-identical either way.
     """
     from trust4_tpu_torch.pipeline import extract_native
 
@@ -125,8 +128,13 @@ def extract_candidates(
     native_filter = None
     prefilter = None
     if use_tpu_prefilter:
-        raise NotImplementedError(
-            "--tpuPrefilter: the membership prefilter is not ported yet"
+        from trust4_tpu_torch.ops.prefilter import TpuPrefilter
+
+        prefilter = TpuPrefilter(
+            [sw.consensus for sw in ref_set.seqs],
+            k=kmer_length,
+            hit_len_required=hit_len,
+            device=device,
         )
     else:
         if extract_native.available():
@@ -184,15 +192,9 @@ def extract_candidates(
                 max(len(r1.seq) for r1, _ in batch),
                 max((len(r2.seq) for _, r2 in batch if r2 is not None), default=0),
             )
-            mask1 = prefilter(
-                [r1.seq for r1, _ in batch], pad_len=pad,
-                fixed_batch=batch_size,
-            )
+            mask1 = prefilter([r1.seq for r1, _ in batch], pad_len=pad)
             if it2 is not None:
-                mask2 = prefilter(
-                    [r2.seq for _, r2 in batch], pad_len=pad,
-                    fixed_batch=batch_size,
-                )
+                mask2 = prefilter([r2.seq for _, r2 in batch], pad_len=pad)
             else:
                 mask2 = mask1
             survivors = [
@@ -202,8 +204,9 @@ def extract_candidates(
             survivors = list(range(len(batch)))
 
         if threads > 1 and len(survivors) > 64 and not use_tpu_prefilter:
-            # (fork after JAX initialisation is unsafe; with the TPU
-            # prefilter active the survivor set is small enough serially)
+            # (with the prefilter active this process may hold a CUDA
+            # context, which a forked child cannot use; the exact pass over
+            # survivors stays serial then, as in the JAX package)
             # The exact filter is per-read independent; fork workers share
             # the index copy-on-write (main.cpp batches of 512*T similarly).
             from trust4_tpu_torch.utils.parallel import map_fork_chunks
@@ -245,10 +248,15 @@ def run_barcoded_extractor(
     skip_barcode_error_read: bool = False,
     kmer_length: int = 9,
     use_tpu_prefilter: bool = False,
+    device: str = "cuda",
 ) -> None:
     """Barcode/UMI-aware extraction (FastqExtractor.cpp:407-545 single-thread
     flow): candidate test on raw reads, barcode low-complexity guard,
-    whitelist correction, translation, and formatted read emission."""
+    whitelist correction, translation, and formatted read emission.
+
+    With use_tpu_prefilter, batches of 16384 read tuples first pass the
+    device cluster prefilter on ``device``, as in ``extract_candidates``;
+    only survivors take the exact test, so the output is unchanged."""
     from trust4_tpu_torch.pipeline.barcode import (
         FORMAT_BARCODE,
         FORMAT_READ1,
@@ -289,8 +297,13 @@ def run_barcoded_extractor(
 
     prefilter = None
     if use_tpu_prefilter:
-        raise NotImplementedError(
-            "--tpuPrefilter: the membership prefilter is not ported yet"
+        from trust4_tpu_torch.ops.prefilter import TpuPrefilter
+
+        prefilter = TpuPrefilter(
+            [sw.consensus for sw in ref_set.seqs],
+            k=kmer_length,
+            hit_len_required=hit_len,
+            device=device,
         )
 
     has_mate = read2 is not None
@@ -442,32 +455,34 @@ def run_barcoded_extractor(
                 ru = next(itu) if itu is not None else None
             yield r1, r2, rb, ru
 
+    nthreads = os.cpu_count() or 1
+
+    def exact(seqs):
+        if native_filter is not None and seqs:
+            return native_filter.filter_batch(seqs, threads=nthreads)
+        return [is_good_candidate(s, ref_set) for s in seqs]
+
     def candidate_tuples():
-        if native_filter is None:
-            for r1, r2, rb, ru in tuples():
-                good = is_good_candidate(r1.seq, ref_set)
-                if not good and r2 is not None:
-                    good = is_good_candidate(r2.seq, ref_set)
-                yield r1, r2, rb, ru, good
-            return
-        nthreads = os.cpu_count() or 1
         batch = []
         def flush():
-            good1 = native_filter.filter_batch(
-                [t[0].seq for t in batch], threads=nthreads
-            )
+            # Only reads that pass the prefilter (when it is on) take the
+            # exact test; the mate is tested when the first read fails
+            # (FastqExtractor.cpp:471-477).
+            live = list(range(len(batch)))
+            if prefilter is not None:
+                pad = max(len(s.seq) for t in batch for s in t[:2]
+                          if s is not None)
+                mask1 = prefilter([t[0].seq for t in batch], pad_len=pad)
+                mask2 = (prefilter([t[1].seq for t in batch], pad_len=pad)
+                         if has_mate else mask1)
+                live = [bi for bi in live if mask1[bi] or mask2[bi]]
+            good1 = exact([batch[bi][0].seq for bi in live])
             pend = [
-                bi for bi in range(len(batch))
-                if not good1[bi] and batch[bi][1] is not None
+                bi for bi, g in zip(live, good1)
+                if not g and batch[bi][1] is not None
             ]
-            good2 = (
-                native_filter.filter_batch(
-                    [batch[bi][1].seq for bi in pend], threads=nthreads
-                )
-                if pend
-                else []
-            )
-            ok = set(bi for bi in range(len(batch)) if good1[bi])
+            good2 = exact([batch[bi][1].seq for bi in pend])
+            ok = set(bi for bi, g in zip(live, good1) if g)
             ok.update(bi for bi, g in zip(pend, good2) if g)
             for bi, t in enumerate(batch):
                 yield (*t, bi in ok)
@@ -518,8 +533,10 @@ def run_extractor(
     kmer_length: int = 9,
     use_tpu_prefilter: bool = False,
     threads: int = 1,
+    device: str = "cuda",
 ) -> Tuple[str, Optional[str]]:
-    """Write *_toassemble FASTQs like the reference extractor binary."""
+    """Write *_toassemble FASTQs like the reference extractor binary.
+    ``device`` is where the prefilter runs (use_tpu_prefilter only)."""
     from trust4_tpu_torch.pipeline import extract_native
 
     if not use_tpu_prefilter and extract_native.available():
@@ -556,6 +573,7 @@ def run_extractor(
             for r1, r2 in extract_candidates(
                 ref_fa, read1, read2, kmer_length,
                 use_tpu_prefilter=use_tpu_prefilter, threads=threads,
+                device=device,
             ):
                 f1.write(f"@{r1.id}\n{r1.seq}\n+\n{r1.qual}\n")
                 f2.write(f"@{r2.id}\n{r2.seq}\n+\n{r2.qual}\n")
@@ -565,6 +583,7 @@ def run_extractor(
         for r1, _ in extract_candidates(
             ref_fa, read1, None, kmer_length,
             use_tpu_prefilter=use_tpu_prefilter, threads=threads,
+            device=device,
         ):
             if r1.qual is not None:
                 f1.write(f"@{r1.id}\n{r1.seq}\n+\n{r1.qual}\n")

@@ -89,9 +89,10 @@ def run_trust4(
     mate_id_suffix_len: int = -1,
     device: str = "cuda",
 ) -> None:
-    """``device`` is the torch device of the gap-fill DP: "cuda" (the
-    default) launches the port's CUDA kernel and raises without a card;
-    "cpu" runs its plain PyTorch version."""
+    """``device`` is the torch device of the gap-fill DP and of the
+    ``use_tpu_prefilter`` extraction prefilter: "cuda" (the default)
+    launches the port's CUDA kernel and runs the prefilter on the card,
+    and raises without one; "cpu" runs their plain PyTorch versions."""
     # Large freed stage buffers must stay reusable: this VM's anonymous
     # page faults are ~100MB/s and glibc munmaps every freed >128KB
     # block by default (utils/memarena.py).
@@ -135,6 +136,7 @@ def run_trust4(
                 barcode_whitelist=barcode_whitelist,
                 barcode_translate=barcode_translate,
                 use_tpu_prefilter=use_tpu_prefilter,
+                device=device,
             )
         elif paired:
             run_extractor(
@@ -144,6 +146,7 @@ def run_trust4(
                 prefix + "_toassemble",
                 use_tpu_prefilter=use_tpu_prefilter,
                 threads=threads,
+                device=device,
             )
         else:
             run_extractor(
@@ -153,6 +156,7 @@ def run_trust4(
                 prefix + "_toassemble",
                 use_tpu_prefilter=use_tpu_prefilter,
                 threads=threads,
+                device=device,
             )
 
     _stamp("extract")
