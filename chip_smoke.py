@@ -34,7 +34,26 @@ It drives the port only (never jax, never trust4_tpu):
    the round on the CPU;
 7. prefilter phase: a 20,000-read corpus through ``run_trust4`` with
    ``use_tpu_prefilter=True`` on the card and with the default native
-   extractor; every artifact must be byte-identical.
+   extractor; every artifact must be byte-identical;
+8. dirs phase: the traceback-bits path (``ops/dp_dirs.dirs_counts``: the
+   dirs kernel, then the decoder) at each tier's full chunk (launches
+   counted from 0 around it); the kernel's scores and whole (N, P, W)
+   bits tensor bit-equal to its plain version, the decoded counts equal
+   to the counts kernel's and to the native DP on a sample; the mixed
+   scores batch at W=32 with its out-of-tile rows at -2^29; medians of
+   the kernel, the plain version and the decoder beside the bound;
+9. lab phase: ``trust4_tpu_torch.tools.dp_kernel_lab`` at the bench shape
+   (modes base, inter2, inter4, abl, then abl per DP_ABLATE flag;
+   launches counted from 0 around it); each lab kernel bit-equal to its
+   plain version, the no-flag kernels also to the scores kernel;
+10. microbench phase: ``trust4_tpu_torch.tools.vpu_microbench`` (every
+   body and size; launches counted from 0 around it); each body's output
+   equal to the plain body's, with ms per launch, ns/op and the body's
+   SASS instruction count.
+
+Small launches spend much of their CUDA-event time in the host's gap
+before the kernel starts, so the dirs, lab and microbench phases also
+report each kernel's time in back-to-back launches (``device_ms``).
 
 It prints one ``{"kernels": [...]}`` line, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -88,6 +107,11 @@ SCORE_OPS_PER_CELL = 13
 # Counts (dp_counts.cuh): the score's 13, four tie compares, CM 4
 # (increment select, add, two selects), CE 2 and CF 2 (select, add): 25.
 OPS_PER_CELL = 25
+# Traceback bits (dp_dirs.cuh): the score's 13, the four bit tests (b0,
+# b1 and b2 one compare each, b2 reusing E's m_up + GO+GE; b3 an add and a
+# compare: 5) and packing four bits into a byte (three shifts, three ors:
+# 6): 24.
+DIRS_OPS_PER_CELL = 24
 N_TIMED = 15
 N_SAMPLE = 2000
 SCALE_READS = 500_000
@@ -102,9 +126,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """nvcc for the kernels, then g++ for the native libraries, so no
-    later phase times a build."""
+    later phase times a build.  Returns the SASS counts (_sass_counts) of
+    every kernel instance."""
     from trust4_tpu_torch.ops import build
     from trust4_tpu_torch.utils.nativebuild import ensure_built
 
@@ -120,33 +145,51 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
+    sass = {}
     for name in build.kernel_names():
-        print(f"  sass {name}: instructions per tile cell of the row loop "
-              f"by W {json.dumps(_sass_per_cell(build.library_path(name)))}")
+        sass.update(_sass_counts(build.library_path(name)))
+        print(f"  sass {name}: " + json.dumps(
+            {k: v for k, v in sass.items() if v["library"] == name}))
+    return sass
 
 
-def _sass_per_cell(lib: str) -> dict:
-    """{W: instructions per tile cell} of each kernel instance in a built
-    library: the SASS instructions (cuobjdump) inside the function's
-    widest backward branch, its row loop, over W.  The kernels sweep all
-    W cells of a row, so this is what they issue per tile cell, beside
-    the operations the function needs per band cell (OPS_PER_CELL,
-    SCORE_OPS_PER_CELL)."""
+def _sass_counts(lib: str) -> dict:
+    """SASS instructions (cuobjdump) of each kernel instance in a built
+    library, keyed by the kernel's name and full template arguments
+    ("dp_inter_kernel<32,2>"): ``total`` in the function; ``loop`` inside
+    its widest backward branch (its row loop), where it has one; and for
+    the DP kernels ``per_tile_cell`` = loop / (W x jobs per thread), W
+    being their first template argument.  The DP kernels sweep all W
+    cells of a row, so that is what they issue per tile cell, beside the
+    operations the function needs per band cell (OPS_PER_CELL,
+    SCORE_OPS_PER_CELL, DIRS_OPS_PER_CELL).  The microbenchmark bodies
+    are unrolled in full, so their ``total`` holds the K operations."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
-        return {"cuobjdump": "not found"}
+        raise RuntimeError("cuobjdump not found")
     sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
                           capture_output=True, text=True, timeout=300).stdout
+    library = re.match(r"lib(\w+?)_[0-9a-f]{16}\.so$",
+                       os.path.basename(lib)).group(1)
     out = {}
     for fn in sass.split("Function : ")[1:]:
-        w = int(re.search(r"ILi(\d+)E", fn).group(1))
+        m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", fn.split()[0])
+        name = m.group(1)
+        args = [int(a) for a in re.findall(r"L[a-z](\d+)E", m.group(2))]
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        rec = {"library": library, "total": len(ins)}
         loops = [(int(t, 16), a) for a, op in ins
                  for t in re.findall(r"BRA\s+0x([0-9a-f]+)", op)
                  if int(t, 16) < a]
-        lo, hi = max(loops, key=lambda x: x[1] - x[0])
-        out[w] = round(sum(lo <= a <= hi for a, _ in ins) / w, 2)
+        if loops:
+            lo, hi = max(loops, key=lambda x: x[1] - x[0])
+            rec["loop"] = sum(lo <= a <= hi for a, _ in ins)
+            if name.startswith("dp_"):
+                jobs = args[1] if name == "dp_inter_kernel" else 1
+                rec["per_tile_cell"] = round(rec["loop"] / (args[0] * jobs),
+                                             2)
+        out[f"{name}<{','.join(map(str, args))}>"] = rec
     return dict(sorted(out.items()))
 
 
@@ -348,6 +391,306 @@ def phase_scores():
         print(f"scores kernel {json.dumps(rec)}", flush=True)
         records.append(rec)
     return records
+
+
+def _dirs_cells(t_lens, p_lens, w: int, p_max: int) -> int:
+    """Band cells whose bits the dirs function outputs: for every pair,
+    the cells of rows 1..p_max (rows beyond p_len included: their bits
+    are part of the (N, P, W) output) at columns 1 <= j <= t_len within
+    the band and the tile."""
+    total = 0
+    for s in range(0, len(t_lens), 8192):  # bounded temporaries
+        tl = t_lens[s:s + 8192].astype(np.int64)[:, None]
+        pl = p_lens[s:s + 8192].astype(np.int64)[:, None]
+        left = 5 + np.maximum(0, pl - tl)
+        right = 5 + np.maximum(0, tl - pl)
+        i = np.arange(1, p_max + 1, dtype=np.int64)[None, :]
+        lo = np.maximum(1, i - left)
+        hi = np.minimum(np.minimum(tl, i + right), i - left + w - 1)
+        total += int(np.clip(hi - lo + 1, 0, None).sum())
+    return total
+
+
+def _dirs_record(tag, tc, tl, pc, pl, w, args, max_abs_err) -> dict:
+    """Bound and CUDA-event medians of the dirs kernel and its plain
+    version on one batch (the inputs on the card in args)."""
+    from trust4_tpu_torch.ops import dp_dirs
+    from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
+
+    n, p_max = len(tl), pc.shape[1]
+    rec = {"shape": tag, "n": n, "t_max": tc.shape[1], "p_max": p_max,
+           "w": w, "cells": _dirs_cells(tl, pl, w, p_max),
+           "live_rows": int(np.minimum(pl, p_max).astype(np.int64).sum()),
+           "rows": n * p_max,
+           "bytes": int(tc.nbytes + pc.nbytes + 12 * n + n * p_max * w)}
+    ops_s = rec["cells"] * DIRS_OPS_PER_CELL / INT32_OPS_PER_S
+    bytes_s = rec["bytes"] / HBM_BYTES_PER_S
+    rec["bound_ms"] = 1e3 * max(ops_s, bytes_s)
+    rec["bound_by"] = "bytes" if bytes_s > ops_s else "operations"
+    rec["max_abs_err"] = max_abs_err
+    rec["ms"] = _median_ms(lambda: dp_dirs.banded_affine_dirs(*args, w),
+                           N_TIMED)
+    rec["plain_ms"] = _median_ms(lambda: banded_affine_dirs_plain(*args, w),
+                                 N_TIMED)
+    rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
+    return rec
+
+
+def phase_dirs():
+    """The traceback-bits path (ops/dp_dirs.dirs_counts: the dirs kernel,
+    then the decoder) at each gap-oracle tier's full chunk, launches
+    counted from 0 around it; then per tier the kernel's scores and whole
+    (N, P, W) bits tensor against the plain version, the decoded counts
+    against the counts kernel and a native sample, and timings; and the
+    mixed scores batch at W=32 with its out-of-tile rows pinned at -2^29.
+    Returns (launches, per-tier records, mixed record)."""
+    from trust4_tpu_torch.align.native import global_alignment_counts
+    from trust4_tpu_torch.ops import dp_counts, dp_dirs
+    from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
+    from trust4_tpu_torch.ops.gap_oracle import _TIERS
+    from trust4_tpu_torch.testing import rand_gap_jobs
+
+    dev = torch.device("cuda")
+    jobs = []
+    for cap, w, chunk in _TIERS:
+        rng = np.random.default_rng(1000 + cap)
+        ts, ps, tc, tl, pc, pl = rand_gap_jobs(rng, chunk, cap, w)
+        jobs.append((cap, w, chunk, rng, ts, ps, tc, tl, pc, pl,
+                     dp_counts.to_device_jobs(tc, tl, pc, pl, dev)))
+    dp_dirs.LAUNCHES = 0
+    outs = [dp_dirs.dirs_counts(*job[-1], job[1]) for job in jobs]
+    torch.cuda.synchronize()
+    launches = dp_dirs.LAUNCHES
+    if launches == 0:
+        raise AssertionError("dirs phase: the dirs kernel never launched")
+
+    records = []
+    for (cap, w, chunk, rng, ts, ps, tc, tl, pc, pl, args), (s_path, c_path) \
+            in zip(jobs, outs):
+        s_k, d_k = dp_dirs.banded_affine_dirs(*args, w)
+        s_p, d_p = banded_affine_dirs_plain(*args, w)
+        _s, c_counts = dp_counts.banded_affine_counts(*args, w)
+        torch.cuda.synchronize()
+        for what, a, b in (("scores", s_k, s_p), ("dirs", d_k, d_p),
+                           ("path scores", s_path, s_p),
+                           ("decoded counts vs the counts kernel", c_path,
+                            c_counts)):
+            if not torch.equal(a, b):
+                bad = int((a != b).reshape(len(a), -1).any(1).sum())
+                raise AssertionError(
+                    f"dirs tier ({cap},{w},{chunk}): {what} differ in {bad} "
+                    "jobs")
+        counts = c_path.cpu().numpy()
+        for i in rng.choice(chunk, N_SAMPLE, replace=False):
+            want = ((0, 0, 0) if tl[i] == 0 or pl[i] == 0 else
+                    global_alignment_counts(ts[i][: tl[i]], ps[i][: pl[i]]))
+            if tuple(int(v) for v in counts[i]) != want:
+                raise AssertionError(f"dirs tier ({cap},{w}) job {i}: "
+                                     f"{counts[i]} vs native {want}")
+        err = int(max((s_k - s_p).abs().max(),
+                      (d_k.int() - d_p.int()).abs().max()))
+        del s_k, d_k, s_p, d_p
+        rec = _dirs_record(f"tier ({cap},{w},{chunk})", tc, tl, pc, pl, w,
+                           args, err)
+        dirs = dp_dirs.banded_affine_dirs(*args, w)[1]
+        rec["decode_steps"] = 2 * (cap + cap) + 4
+        rec["decode_ms"] = _median_ms(
+            lambda: dp_dirs.decode_dirs_counts(dirs, *args, w=w, p_max=cap),
+            N_TIMED)
+        del dirs
+        rec["counts_kernel_ms"] = _median_ms(
+            lambda: dp_counts.banded_affine_counts(*args, w), N_TIMED)
+        records.append(rec)
+
+    tc, tl, pc, pl = _score_inputs("mixed")
+    w = 32
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, dev)
+    s_k, d_k = dp_dirs.banded_affine_dirs(*args, w)
+    s_p, d_p = banded_affine_dirs_plain(*args, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(s_k, s_p) and torch.equal(d_k, d_p)):
+        raise AssertionError("dirs mixed: kernel differs from the plain "
+                             "version")
+    k_final = tl.astype(np.int64) - pl + np.where(tl < pl, 5 + (pl - tl), 5)
+    off = (k_final < 0) | (k_final >= w)
+    got = s_k.cpu().numpy()
+    if not off.any() or (got[off] != -(1 << 29)).any() \
+            or (got[~off] == -(1 << 29)).any():
+        raise AssertionError("dirs mixed: out-of-tile rows not at -2^29")
+    err = int(max((s_k - s_p).abs().max(),
+                  (d_k.int() - d_p.int()).abs().max()))
+    del s_k, d_k, s_p, d_p
+    mixed = _dirs_record("mixed", tc, tl, pc, pl, w, args, err)
+    mixed["out_of_tile_rows"] = int(off.sum())
+
+    # Back-to-back device times: per tier the dirs and the counts kernel,
+    # then the dirs kernel on the mixed batch.
+    calls = []
+    for job in jobs:
+        calls += [lambda a=job[-1], w=job[1]: dp_dirs.banded_affine_dirs(*a, w),
+                  lambda a=job[-1], w=job[1]:
+                  dp_counts.banded_affine_counts(*a, w)]
+    calls.append(lambda: dp_dirs.banded_affine_dirs(*args, w))
+    dev_ms = _device_ms(calls, N_TIMED)
+    for i, rec in enumerate(records):
+        rec["device_ms"] = dev_ms[2 * i]
+        rec["counts_kernel_device_ms"] = dev_ms[2 * i + 1]
+        print(f"dirs tier {json.dumps(rec)}", flush=True)
+    mixed["device_ms"] = dev_ms[-1]
+    print(f"dirs mixed {json.dumps(mixed)}", flush=True)
+    return launches, records, mixed
+
+
+def phase_lab(scores_bench: dict):
+    """The kernel lab tool at the bench shape, as a user runs it (modes
+    base, inter2, inter4, abl; then abl once per DP_ABLATE flag), launches
+    counted from 0 around it; then each lab kernel against its plain
+    version on the same inputs, the no-flag kernels also against the
+    scores kernel's output.  Returns {row name: record}."""
+    from trust4_tpu_torch.ops import dp_scores
+    from trust4_tpu_torch.ops.dp import banded_affine_scores_plain
+    from trust4_tpu_torch.ops.dp_counts import to_device_jobs
+    from trust4_tpu_torch.tools import dp_kernel_lab as lab
+
+    lab.INTER_LAUNCHES = {g: 0 for g in lab.GROUPS}
+    lab.ABL_LAUNCHES = 0
+    timed = lab.run_modes(["base", "inter2", "inter4", "abl"], "cuda")
+    for flag in lab.ABL_FLAGS:
+        timed.update(lab.run_modes(["abl"], "cuda", ablate=frozenset([flag])))
+    torch.cuda.synchronize()
+    launches = {"inter2": lab.INTER_LAUNCHES[2],
+                "inter4": lab.INTER_LAUNCHES[4], "abl": lab.ABL_LAUNCHES}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"lab phase: a kernel never launched {launches}")
+
+    w = lab.LAB_BAND
+    tc, tl, pc, pl, _ = lab.make_inputs()
+    args = to_device_jobs(tc, tl, pc, pl, torch.device("cuda"))
+    want = banded_affine_scores_plain(*args, w)
+    base = dp_scores.banded_affine_scores(*args, w)
+    if not torch.equal(base, want):
+        raise AssertionError("lab: the scores kernel differs from plain")
+    plain_ms = _median_ms(lambda: banded_affine_scores_plain(*args, w),
+                          N_TIMED)
+    common = {k: scores_bench[k] for k in ("n", "t_max", "p_max", "w",
+                                            "cells", "bytes", "bound_ms",
+                                            "bound_by")}
+    out = {}
+    for g in lab.GROUPS:
+        got = lab.scores_inter(*args, w, g)
+        if not torch.equal(got, want):
+            raise AssertionError(f"lab inter{g}: differs from the plain "
+                                 "version")
+        rec = dict(common, ms=timed[f"inter{g}"]["ms"], plain_ms=plain_ms,
+                   max_abs_err=int((got - want).abs().max()),
+                   launches=launches[f"inter{g}"])
+        out[f"inter{g}"] = rec
+    flags = {}
+    for flag in [None, *lab.ABL_FLAGS]:
+        ablate = frozenset([flag] if flag else [])
+        got = lab.scores_abl(*args, w, ablate)
+        ref = lab.banded_affine_scores_ablated(*args, w, ablate)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"lab abl {flag}: differs from the plain "
+                                 "ablated version")
+        if flag is None and not torch.equal(got, base):
+            raise AssertionError("lab abl: differs from the scores kernel")
+        label = f"abl {flag or '(no flag)'}"
+        flags[flag or "none"] = {
+            "ms": timed[label]["ms"],
+            "wrong_pairs": int((ref != want).sum()),
+            "max_abs_err": int((got.long() - ref.long()).abs().max())}
+    # Back-to-back device times: inter2, inter4, abl per flag, then the
+    # scores kernel.
+    dev_ms = _device_ms(
+        [lambda g=g: lab.scores_inter(*args, w, g) for g in lab.GROUPS]
+        + [lambda f=f: lab.scores_abl(*args, w, frozenset([f] if f else []))
+           for f in [None, *lab.ABL_FLAGS]]
+        + [lambda: dp_scores.banded_affine_scores(*args, w)], N_TIMED)
+    for g, ms in zip(lab.GROUPS, dev_ms):
+        out[f"inter{g}"]["device_ms"] = ms
+    for f, ms in zip(flags, dev_ms[len(lab.GROUPS):-1]):
+        flags[f]["device_ms"] = ms
+    out["abl"] = dict(common, ms=flags["none"]["ms"],
+                      device_ms=flags["none"]["device_ms"],
+                      scores_kernel_device_ms=dev_ms[-1],
+                      plain_ms=_median_ms(
+                          lambda: lab.banded_affine_scores_ablated(*args, w),
+                          N_TIMED),
+                      max_abs_err=max(f["max_abs_err"] for f in flags.values()),
+                      launches=launches["abl"], flags=flags)
+    for rec in out.values():
+        rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["cells_per_s"] = rec["cells"] / (rec["ms"] * 1e-3)
+    print(f"lab: bit-equal to the plain versions {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def _device_ms(calls, n: int) -> list:
+    """Device time (ms) per call of each call, with the host's launch
+    overhead left out: after 3 warm-up calls, a spin kernel holds the
+    stream (about 0.1 s) while the host enqueues n calls, so the card runs
+    them back to back between two CUDA events.  _median_ms times one call
+    between its events, host gap included, which is most of a small
+    launch's time.  (torch.profiler lost about ten kernel events per
+    session on the chip machine, so it cannot split a session by call.)"""
+    out = []
+    for fn in calls:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    return out
+
+
+def phase_microbench(sass: dict):
+    """The microbenchmark tool as a user runs it (every body and size,
+    each checked against its plain body inside the tool), launches counted
+    from 0 around it; then each body's output against the plain body's,
+    its SASS instructions (the body is unrolled in full, so they hold its
+    K operations), its back-to-back device time and the plain body's
+    time.  Returns (launches, cases)."""
+    from trust4_tpu_torch.tools import vpu_microbench as vb
+
+    vb.LAUNCHES = 0
+    cases = vb.run_cases("cuda")
+    torch.cuda.synchronize()
+    launches = vb.LAUNCHES
+    if launches == 0:
+        raise AssertionError("microbench: the kernel never launched")
+    for rec in cases:
+        x = torch.from_numpy(vb.make_tile(rec["w"], rec["lanes"])).cuda()
+        got = vb.run_body(rec["body"], x)
+        want = vb.plain_body(rec["body"], x)
+        rec["max_abs_err"] = int((got.long() - want.long()).abs().max())
+        if rec["max_abs_err"]:
+            raise AssertionError(f"microbench {rec['body']}: differs")
+        rec["sass"] = sass[f"microbench_kernel<{vb.BODIES[rec['body']]},"
+                           f"{rec['w']}>"]["total"]
+        rec["plain_ms"] = _median_ms(
+            lambda: vb.plain_body(rec["body"], x), N_TIMED)
+        # Element operations over the issue ceiling: a throughput floor
+        # that a dependent chain, bound by latency, cannot reach.
+        rec["bound_ms"] = 1e3 * (vb.GRID * rec["k_ops"] * rec["w"]
+                                 * rec["lanes"] / INT32_OPS_PER_S)
+    tiles = [torch.from_numpy(vb.make_tile(r["w"], r["lanes"])).cuda()
+             for r in cases]
+    dev_ms = _device_ms([lambda r=r, x=x: vb.run_body(r["body"], x)
+                         for r, x in zip(cases, tiles)], N_TIMED)
+    for rec, ms in zip(cases, dev_ms):
+        rec["device_ms"] = ms
+        rec["device_ns_per_op"] = ms * 1e6 / (vb.GRID * rec["k_ops"])
+        print(f"microbench {json.dumps(rec)}", flush=True)
+    return launches, cases
 
 
 @contextlib.contextmanager
@@ -655,7 +998,7 @@ def main() -> int:
           flush=True)
     card = card_line()
     print(card, flush=True)
-    phase_build()
+    sass = phase_build()
     tiers = phase_kernels()
     shapes = phase_scores()
     entry_launches = phase_entry()
@@ -672,6 +1015,9 @@ def main() -> int:
         phase_prefilter(work, coord, imgt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    dirs_launches, dirs_tiers, dirs_mixed = phase_dirs()
+    lab = phase_lab(shapes[1])
+    mb_launches, mb_cases = phase_microbench(sass)
 
     # The kernel line reports the counts kernel's largest tier (the main
     # path's heaviest launches; every tier is in "tiers") and the scores
@@ -709,6 +1055,69 @@ def main() -> int:
                                       "ms", "plain_ms", "bound_ms",
                                       "cells_per_s")} for r in shapes],
     }]
+    # The dirs kernel's top tier (its heaviest launch; every tier and the
+    # mixed batch are in "shapes"); the lab kernels at the bench shape;
+    # the microbenchmark's dependent max+add chain at (32, 128) (every
+    # case is in "cases").
+    top = dirs_tiers[-1]
+    kernels.append({
+        "name": "dp_dirs",
+        "route": "cuda",
+        "source": "trust4_tpu_torch/csrc/dp_dirs.cu",
+        "replaces": "trust4_tpu/ops/dp_pallas.py:385",
+        "launches": dirs_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in dirs_tiers + [dirs_mixed]),
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "device_ms": top["device_ms"],
+        "decode_ms": top["decode_ms"],
+        "shapes": [{k: r.get(k) for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "decode_ms", "counts_kernel_ms", "counts_kernel_device_ms")}
+            for r in dirs_tiers + [dirs_mixed]],
+    })
+    for name in ("inter2", "inter4", "abl"):
+        r = lab[name]
+        kernels.append({
+            "name": f"dp_lab_{name}",
+            "route": "cuda",
+            "source": "trust4_tpu_torch/csrc/dp_lab.cu",
+            "replaces": ("tools/dp_kernel_lab.py:279" if name == "abl" else
+                         "tools/dp_kernel_lab.py:51"),
+            "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "device_ms": r["device_ms"],
+            **({"flags": {f: v["device_ms"] for f, v in r["flags"].items()}}
+               if name == "abl" else {}),
+        })
+    mb = next(c for c in mb_cases if (c["body"], c["w"], c["lanes"])
+              == ("chain_max", 32, 128))
+    kernels.append({
+        "name": "microbench",
+        "route": "cuda",
+        "source": "trust4_tpu_torch/csrc/microbench.cu",
+        "replaces": "tools/vpu_microbench.py:42",
+        "launches": mb_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in mb_cases),
+        "ms": mb["ms"],
+        "plain_ms": mb["plain_ms"],
+        "bound_ms": mb["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "device_ms": mb["device_ms"],
+        "cases": [{k: c[k] for k in ("body", "w", "lanes", "ms",
+                                     "ns_per_op", "device_ms",
+                                     "device_ns_per_op", "sass", "bound_ms")}
+                  for c in mb_cases],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

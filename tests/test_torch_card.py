@@ -152,3 +152,54 @@ def test_prefilter_and_realign_card_match_cpu(card):
     for a, b in zip(on_card, on_cpu):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     assert on_cpu[4] > 0 and (on_cpu[1] > -(1 << 29)).sum() > 0
+
+
+@pytest.mark.parametrize("cap,w", [(16, 16), (48, 24), (144, 48)])
+def test_dirs_kernel_matches_plain_and_counts(card, cap, w):
+    """Scores and the whole (N, P, W) bits tensor bit-equal to the plain
+    version; the decoded counts equal the counts kernel's."""
+    from trust4_tpu_torch.ops import dp_dirs
+    from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
+
+    rng = np.random.default_rng(900 + cap)
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, 2000, cap, w)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    launches = dp_dirs.LAUNCHES
+    s_k, c_k = dp_dirs.dirs_counts(*args, w)
+    torch.cuda.synchronize()
+    assert dp_dirs.LAUNCHES == launches + 1
+    s_p, d_p = banded_affine_dirs_plain(*args, w)
+    _s, d_k = dp_dirs.banded_affine_dirs(*args, w)
+    assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
+    assert torch.equal(c_k, dp_counts.banded_affine_counts(*args, w)[1])
+
+
+def test_lab_kernels_match_plain(card):
+    from trust4_tpu_torch.tools import dp_kernel_lab as lab
+
+    rng = np.random.default_rng(901)
+    n, t_max, p_max = 3001, 152, 140
+    tc = rng.integers(0, 6, (n, t_max)).astype(np.int8)
+    pc = rng.integers(0, 6, (n, p_max)).astype(np.int8)
+    tl = rng.integers(0, t_max + 1, n).astype(np.int32)
+    pl = np.clip(tl + rng.integers(-32, 32, n), 0, p_max).astype(np.int32)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    want = banded_affine_scores_plain(*args, 32)
+    for g in lab.GROUPS:
+        assert torch.equal(lab.scores_inter(*args, 32, g), want), g
+    for flag in [None, *lab.ABL_FLAGS]:
+        ablate = frozenset([flag] if flag else [])
+        got = lab.scores_abl(*args, 32, ablate)
+        assert torch.equal(
+            got, lab.banded_affine_scores_ablated(*args, 32, ablate)), flag
+    with pytest.raises(ValueError, match="one flag"):
+        lab.scores_abl(*args, 32, {"nosub", "noscan"})
+
+
+def test_microbench_bodies_match_plain(card):
+    from trust4_tpu_torch.tools import vpu_microbench as vb
+
+    for name, w, lanes, _label, _k in vb.CASES:
+        x = torch.from_numpy(vb.make_tile(w, lanes)).to(card)
+        assert torch.equal(vb.run_body(name, x), vb.plain_body(name, x)), (
+            name, w, lanes)

@@ -23,8 +23,10 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_trust4_tpu():
     mods = _modules()
-    for m in ("ops.dp_counts", "ops.dp_scores", "ops.prefilter",
-              "parallel", "parallel.realign_mesh", "entry", "pipeline.run"):
+    for m in ("ops.dp_counts", "ops.dp_scores", "ops.dp_dirs",
+              "ops.prefilter", "parallel", "parallel.realign_mesh", "entry",
+              "pipeline.run", "tools", "tools.dp_kernel_lab",
+              "tools.vpu_microbench"):
         assert "trust4_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

@@ -1,12 +1,13 @@
 """The CUDA kernels' arithmetic, run on the CPU.
 
-csrc/dp_counts.cuh and csrc/dp_scores.cuh hold the per-job DP of the
-counts and scores kernels as ``__host__ __device__`` code with no CUDA
-headers.  g++ builds them here, with both qualifiers defined empty, into
-a small host library; each per-job function must equal its plain PyTorch
-version (and so the JAX package) bit for bit, the counts in both
-epilogues.  This is the only place the kernels' own arithmetic runs
-without a card.
+csrc/dp_counts.cuh, csrc/dp_scores.cuh, csrc/dp_dirs.cuh and
+csrc/dp_lab.cuh hold the per-job DP of the counts, scores, dirs and lab
+kernels as ``__host__ __device__`` code with no CUDA headers.  g++ builds
+them here, with both qualifiers defined empty, into a small host library;
+each per-job function must equal its plain PyTorch version (and so the
+JAX package) bit for bit: the counts in both epilogues, the whole dirs
+tensor, the interleaved jobs (G = 2, 4) and every ablation flag.  This is
+the only place the kernels' own arithmetic runs without a card.
 """
 
 import ctypes
@@ -28,6 +29,8 @@ from trust4_tpu_torch.testing import rand_gap_jobs
 _SHIM = r"""
 #include <cstddef>
 #include "dp_counts.cuh"
+#include "dp_dirs.cuh"
+#include "dp_lab.cuh"
 #include "dp_scores.cuh"
 
 template <int W>
@@ -73,6 +76,76 @@ extern "C" int host_dp_scores(const int8_t* t, const int32_t* tl,
   }
   return 1;
 }
+
+template <int W>
+static void run_dirs(const int8_t* t, const int32_t* tl, const int8_t* p,
+                     const int32_t* pl, int n, int t_max, int p_max,
+                     int32_t* scores, int8_t* dirs) {
+  for (int b = 0; b < n; ++b)
+    scores[b] = t4dp::dp_dirs_job<W>(t + (size_t)b * t_max, t_max,
+                                     p + (size_t)b * p_max, p_max, tl[b],
+                                     pl[b], dirs + (size_t)b * p_max * W);
+}
+
+extern "C" int host_dp_dirs(const int8_t* t, const int32_t* tl,
+                            const int8_t* p, const int32_t* pl, int n,
+                            int t_max, int p_max, int w, int32_t* scores,
+                            int8_t* dirs) {
+  switch (w) {
+    case 16: run_dirs<16>(t, tl, p, pl, n, t_max, p_max, scores, dirs); return 0;
+    case 24: run_dirs<24>(t, tl, p, pl, n, t_max, p_max, scores, dirs); return 0;
+    case 32: run_dirs<32>(t, tl, p, pl, n, t_max, p_max, scores, dirs); return 0;
+    case 48: run_dirs<48>(t, tl, p, pl, n, t_max, p_max, scores, dirs); return 0;
+  }
+  return 1;
+}
+
+// The CUDA kernel's job assignment: thread i takes jobs i, i + T, ...
+template <int G>
+static void run_inter(const int8_t* t, const int32_t* tl, const int8_t* p,
+                      const int32_t* pl, int n, int t_max, int p_max,
+                      int32_t* scores) {
+  const int threads = (n + G - 1) / G;
+  for (int i = 0; i < threads; ++i) {
+    int job[G], out[G];
+    for (int g = 0; g < G; ++g) job[g] = i + g * threads < n ? i + g * threads : -1;
+    t4dp::dp_inter_jobs<32, G>(t, tl, p, pl, t_max, p_max, job, out);
+    for (int g = 0; g < G; ++g)
+      if (job[g] >= 0) scores[job[g]] = out[g];
+  }
+}
+
+extern "C" int host_dp_inter(const int8_t* t, const int32_t* tl,
+                             const int8_t* p, const int32_t* pl, int n,
+                             int t_max, int p_max, int groups,
+                             int32_t* scores) {
+  switch (groups) {
+    case 2: run_inter<2>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+    case 4: run_inter<4>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+  }
+  return 1;
+}
+
+template <int FLAGS>
+static void run_abl(const int8_t* t, const int32_t* tl, const int8_t* p,
+                    const int32_t* pl, int n, int t_max, int p_max,
+                    int32_t* scores) {
+  for (int b = 0; b < n; ++b)
+    scores[b] = t4dp::dp_abl_job<32, FLAGS>(t + (size_t)b * t_max, t_max,
+                                            p + (size_t)b * p_max, p_max,
+                                            tl[b], pl[b]);
+}
+
+extern "C" int host_dp_abl(const int8_t* t, const int32_t* tl,
+                           const int8_t* p, const int32_t* pl, int n,
+                           int t_max, int p_max, int flags, int32_t* scores) {
+  switch (flags) {
+#define CASE(F) case F: run_abl<F>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
+    CASE(0) CASE(1) CASE(2) CASE(4) CASE(8) CASE(16) CASE(32) CASE(64)
+#undef CASE
+  }
+  return 1;
+}
 """
 
 
@@ -96,6 +169,11 @@ def host_lib(tmp_path_factory):
     lib.host_dp_counts.restype = ci
     lib.host_dp_scores.argtypes = [vp] * 4 + [ci] * 4 + [vp]
     lib.host_dp_scores.restype = ci
+    lib.host_dp_dirs.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 2
+    lib.host_dp_dirs.restype = ci
+    for fn in (lib.host_dp_inter, lib.host_dp_abl):
+        fn.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        fn.restype = ci
     return lib
 
 
@@ -189,3 +267,92 @@ def test_scores_cuda_source_includes_the_tested_header():
         src = f.read()
     assert '#include "dp_scores.cuh"' in src
     assert "t4dp::dp_scores_job<W>" in src
+
+
+def _arbitrary_jobs(seed, n, t_max, p_max, w):
+    """Random codes incl. N and pad, lengths from 0 to the width, p_len
+    within 2W of t_len: in band, out of band, zero-length rows."""
+    rng = np.random.default_rng(seed)
+    tc = rng.integers(0, 6, (n, t_max)).astype(np.int8)
+    pc = rng.integers(0, 6, (n, p_max)).astype(np.int8)
+    tl = rng.integers(0, t_max + 1, n).astype(np.int32)
+    pl = np.clip(tl + rng.integers(-2 * w, 2 * w, n), 0, p_max).astype(
+        np.int32)
+    return tc, tl, pc, pl
+
+
+def _ptrs(*arrays):
+    assert all(a.flags.c_contiguous for a in arrays)
+    return [a.ctypes.data for a in arrays]
+
+
+@pytest.mark.parametrize("cap,w", [(16, 16), (48, 24), (40, 32), (144, 48)])
+def test_dirs_header_matches_plain(host_lib, cap, w):
+    """Scores and the whole (N, P, W) bits tensor, rows beyond p_len and
+    cells outside the band included, on tier jobs and arbitrary rows."""
+    from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
+
+    rng = np.random.default_rng(60 + cap)
+    _ts, _ps, *tier = rand_gap_jobs(rng, 300, cap, w)
+    for tc, tl, pc, pl in (tier,
+                           _arbitrary_jobs(cap + w, 300, cap, cap - 3, w)):
+        tc, tl, pc, pl = (np.ascontiguousarray(a) for a in (tc, tl, pc, pl))
+        n, p_max = len(tl), pc.shape[1]
+        scores = np.empty(n, np.int32)
+        dirs = np.empty((n, p_max, w), np.int8)
+        assert host_lib.host_dp_dirs(*_ptrs(tc, tl, pc, pl), n, tc.shape[1],
+                                     p_max, w, scores.ctypes.data,
+                                     dirs.ctypes.data) == 0
+        want_s, want_d = banded_affine_dirs_plain(
+            *[torch.from_numpy(a) for a in (tc, tl, pc, pl)], w)
+        np.testing.assert_array_equal(scores, want_s.numpy())
+        np.testing.assert_array_equal(dirs, want_d.numpy())
+
+
+def _lab_host(fn, arg, tc, tl, pc, pl):
+    scores = np.empty(len(tl), np.int32)
+    assert fn(*_ptrs(tc, tl, pc, pl), len(tl), tc.shape[1], pc.shape[1], arg,
+              scores.ctypes.data) == 0
+    return scores
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_inter_header_matches_plain(host_lib, groups):
+    """G jobs per thread, interleaved, with a ragged last thread (n not a
+    multiple of G) and jobs of different row counts in one thread."""
+    tc, tl, pc, pl = _arbitrary_jobs(70 + groups, 301, 60, 52, 32)
+    want = banded_affine_scores_plain(
+        *[torch.from_numpy(a) for a in (tc, tl, pc, pl)], 32).numpy()
+    np.testing.assert_array_equal(
+        _lab_host(host_lib.host_dp_inter, groups, tc, tl, pc, pl), want)
+
+
+@pytest.mark.parametrize("flag", [None, "noshift", "statload", "notslice",
+                                  "nosub", "nokir", "noscan", "nojz"])
+def test_abl_header_matches_ablated_plain(host_lib, flag):
+    from trust4_tpu_torch.tools.dp_kernel_lab import (
+        ABL_FLAGS,
+        banded_affine_scores_ablated,
+    )
+
+    ablate = frozenset([flag] if flag else [])
+    tc, tl, pc, pl = _arbitrary_jobs(80, 300, 60, 52, 32)
+    args = [torch.from_numpy(a) for a in (tc, tl, pc, pl)]
+    want = banded_affine_scores_ablated(*args, 32, ablate).numpy()
+    got = _lab_host(host_lib.host_dp_abl, ABL_FLAGS.get(flag, 0), tc, tl, pc,
+                    pl)
+    np.testing.assert_array_equal(got, want)
+    if flag is None:
+        np.testing.assert_array_equal(
+            got, banded_affine_scores_plain(*args, 32).numpy())
+
+
+def test_new_cuda_sources_include_the_tested_headers():
+    for src, calls in (("dp_dirs.cu", ["t4dp::dp_dirs_job<W>"]),
+                       ("dp_lab.cu", ["t4dp::dp_inter_jobs<W, G>",
+                                      "t4dp::dp_abl_job<W, FLAGS>"])):
+        with open(os.path.join(CSRC_DIR, src)) as f:
+            text = f.read()
+        assert f'#include "{src}h"' in text
+        for call in calls:
+            assert call in text, (src, call)

@@ -43,6 +43,16 @@ _SIGNATURES = {
     "dp_scores": {
         "t4_dp_scores": ([_VP] * 4 + [_CI] * 4 + [_VP] * 2, _CI),
     },
+    "dp_dirs": {
+        "t4_dp_dirs": ([_VP] * 4 + [_CI] * 4 + [_VP] * 3, _CI),
+    },
+    "dp_lab": {
+        "t4_dp_inter": ([_VP] * 4 + [_CI] * 5 + [_VP] * 2, _CI),
+        "t4_dp_abl": ([_VP] * 4 + [_CI] * 5 + [_VP] * 2, _CI),
+    },
+    "microbench": {
+        "t4_microbench": ([_CI] * 4 + [_VP] * 2 + [_CI] * 3 + [_VP], _CI),
+    },
 }
 
 # name -> seconds its nvcc took in this process, and its compiler output

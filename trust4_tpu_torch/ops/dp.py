@@ -1,5 +1,9 @@
-"""Plain PyTorch banded affine-gap DP: scores, and scores with forward
-traceback counts.
+"""Plain PyTorch banded affine-gap DP: scores, scores with forward
+traceback counts, and scores with traceback decision bits.
+
+``banded_affine_dirs_plain`` (at the end) is the plain version of the
+dirs kernel (csrc/dp_dirs.cu), a mirror of trust4_tpu's
+``banded_affine_dirs_xla``.
 
 ``banded_affine_scores_plain`` is the plain version of the scores kernel
 (csrc/dp_scores.cu) and the semantic spec of the final-score DP: a
@@ -385,3 +389,120 @@ def banded_affine_counts_plain(
     if packed:
         return packed_c
     return scores, unpack_counts(packed_c)
+
+
+def banded_affine_dirs_plain(
+    t_codes: torch.Tensor,  # (N, T) int8
+    t_lens: torch.Tensor,  # (N,) int32
+    p_codes: torch.Tensor,  # (N, P) int8
+    p_lens: torch.Tensor,  # (N,) int32
+    band_width: int,
+):
+    """Returns (scores (N,) int32, dirs (N, P, W) int8): the banded DP
+    score and, for every band cell of every query row up to P, the four
+    traceback decision bits
+
+        bit0: f >= e                 bit1: m[i-1][j-1] + sub == m[i][j]
+        bit2: m[i-1][j] + GO+GE == e  bit3: m[i][j-1] + GO+GE == f
+
+    A line-for-line mirror of trust4_tpu's ``banded_affine_dirs_xla``
+    (bit-equal to the Pallas ``_dp_dirs_kernel``): the text is read as the
+    counts DP reads it (pre-shift bucket, window start clamp), rows beyond
+    p_len keep computing bits from the frozen m/e, and a final cell
+    outside the tile scores -2^29."""
+    n, t_max = t_codes.shape
+    p_max = p_codes.shape[1]
+    w = band_width
+    dev = t_codes.device
+    i32 = torch.int32
+    go, ge = SCORE_GAPOPEN, SCORE_GAPEXTEND
+    go_ge = go + ge
+    big_neg = _BIG_NEG
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=i32, device=dev)
+
+    def where(c, a, b):
+        return torch.where(c, a, b).to(i32)
+
+    tl = t_lens.to(i32)
+    pl = p_lens.to(i32)
+    left = where(tl < pl, 5 + (pl - tl), 5)
+    right = where(tl > pl, 5 + (tl - pl), 5)
+    neg_inf = ((tl + 1) * (pl + 1) * go)[:, None]  # (N, 1)
+    # The pre-shifted text window ts[min(i-1, t_max+8) + k] (as in
+    # banded_affine_counts_plain); column t_max of t_ext is padding.
+    t_ext = torch.cat([t_codes.to(i32), full((n, 1), _CODE_PAD)], dim=1)
+    text_ok = (left <= shift_hi_bucket(w))[:, None]
+    pci = p_codes.to(i32)
+
+    k_col = torch.arange(w, dtype=i32, device=dev)[None, :]  # (1, W)
+    j0 = k_col - left[:, None]
+    in_t0 = (j0 >= 0) & (j0 <= tl[:, None])
+    m0 = where(j0 == 0, 0, where(j0 > 0, go + j0 * go, big_neg))
+    e0 = where(j0 == 0, 0,
+               where(j0 > 0, go + (pl[:, None] + 1) * go, big_neg))
+    m = where(in_t0, m0, neg_inf)
+    e = where(in_t0, e0, neg_inf)
+
+    bn_fill = full((n, 1), big_neg)
+
+    def shift_up(a):  # band neighbour k+1
+        return torch.cat([a[:, 1:], bn_fill], dim=1)
+
+    dirs = torch.empty((n, p_max, w), dtype=torch.int8, device=dev)
+    for i in range(1, p_max + 1):
+        j_row = i - left[:, None] + k_col
+        in_band = (
+            (j_row >= 1)
+            & (j_row <= tl[:, None])
+            & (j_row <= i + right[:, None])
+        )
+        in_dp_row = (i <= pl)[:, None]
+
+        x = min(i - 1, t_max + 8) + k_col - left[:, None]
+        x = where(text_ok & (x >= 0) & (x < t_max), x, t_max)
+        tj = torch.gather(t_ext, 1, x.long())
+        pi = pci[:, i - 1 : i]
+        eq = (tj == pi) | (tj == _CODE_N) | (pi == _CODE_N)
+        sub = where(eq, SCORE_MATCH, SCORE_MISMATCH)
+
+        e_new = torch.maximum(shift_up(e) + ge, shift_up(m) + go + ge)
+        diag = m + sub
+
+        bound_m = go + i * go
+        base = torch.maximum(diag, e_new)
+        base = where(j_row == 0, bound_m, base)
+        base = where(in_band | (j_row == 0), base, big_neg)
+
+        # horizontal-gap recurrence: exclusive running max over the band
+        t_val = where(j_row == 0, bound_m, base + go) + k_col * (-ge)
+        run = t_val
+        s = 1
+        while s < w:
+            run = torch.maximum(
+                run, torch.cat([full((n, s), big_neg), run[:, :-s]], dim=1)
+            )
+            s *= 2
+        f_new = torch.cat([bn_fill, run[:, :-1]], dim=1) - k_col * (-ge)
+
+        m_fin = torch.maximum(base, f_new)
+        m_stored = where(in_band & in_dp_row, m_fin, neg_inf)
+        m_stored = where((j_row == 0) & in_dp_row, bound_m, m_stored)
+        e_stored = where(in_band & in_dp_row, e_new, neg_inf)
+
+        b0 = (f_new >= e_new).to(i32)
+        b1 = (diag == m_fin).to(i32)
+        b2 = (shift_up(m) + go_ge == e_new).to(i32)
+        fill = where((i - left[:, None]) == 1, bound_m, big_neg)
+        m_left = torch.cat([fill, m_stored[:, :-1]], dim=1)
+        b3 = (m_left + go_ge == f_new).to(i32)
+        dirs[:, i - 1, :] = (b0 | (b1 << 1) | (b2 << 2) | (b3 << 3)).to(
+            torch.int8)
+
+        m = where(in_dp_row, m_stored, m)
+        e = where(in_dp_row, e_stored, e)
+
+    k_final = (tl - pl + left)[:, None]
+    scores = where(k_col == k_final, m, big_neg).amax(dim=1)
+    return scores, dirs
