@@ -9,13 +9,20 @@ It drives the port only (never jax, never trust4_tpu):
 
 1. prints the card (nvidia-smi name and power limit) and builds every
    kernel from csrc/ with nvcc (one process per source, all at once);
-2. kernel phase: the gap-fill counts kernel at each tier's full chunk
-   shape against its plain PyTorch version on the card (bit-equal scores
-   and counts, both epilogues), a 2,000-job sample against the native CPU
-   DP, and warm CUDA-event timings (median of 15 launches) beside the
-   bound; then the scores kernel the same way at the entry shape, the
-   bench shape and a mixed batch (zero-length and out-of-band rows);
-   its sample is held against the native ``global_alignment`` score;
+2. kernel phase: the gap-fill counts kernel, every (W, L) instance the
+   library is built for (L lanes per job), at each tier's full chunk, a
+   partial and a small batch per tier and a ragged batch of 33 jobs:
+   bit-equal to its plain PyTorch version on the card (scores and
+   counts, both epilogues, in the wrapper's order and a random
+   permutation), the wrapper's own launch likewise, a 2,000-job sample
+   of each full chunk against the native CPU DP; per instance the warm
+   CUDA-event median of 15 launches, the back-to-back device time, SASS
+   per tile and per band cell, registers and spills, beside the bound
+   and the instance the wrapper's table chose; then the scores kernel the
+   same way at the entry, bench, mixed, realign-sized (2,300 pairs) and
+   ragged shapes at W=32, and a mixed and a realign-sized batch at W =
+   16, 24, 48; each W=32 sample is held against the native
+   ``global_alignment`` score;
 3. entry phase: ``trust4_tpu_torch.entry.entry(device="cuda")`` (the
    prefilter and the scores kernel) against the same step with the plain
    DP on the card;
@@ -24,9 +31,10 @@ It drives the port only (never jax, never trust4_tpu):
    equal tests/data/gold_*;
 5. scale phase: a 500k-read bulk corpus (tools/make_bench_corpus.py) run
    on the card with the default settings (the main path: launches counted
-   from 0 around it) and again with TRUST4_TPU_DEVICE=0; the artifacts
-   must be byte-identical and the kernel must have launched; a third
-   card run under torch.profiler gives the device's busy and idle share;
+   from 0 around it; the gap oracle's per-tier launches and CUDA-event
+   kernel ms) and again with TRUST4_TPU_DEVICE=0; the artifacts must be
+   byte-identical and the kernel must have launched; a third card run
+   under torch.profiler gives the device's busy and idle share;
 6. realign phase: the scale run's own candidate reads and contigs, with
    the stand-in coordinate FASTA as germline, through ``realign_round``
    on the card (launches counted from 0 around it); its five outputs must
@@ -129,7 +137,8 @@ def card_line() -> str:
 def phase_build() -> dict:
     """nvcc for the kernels, then g++ for the native libraries, so no
     later phase times a build.  Returns the SASS counts (_sass_counts) of
-    every kernel instance."""
+    every kernel instance, with the registers and spills ptxas reported
+    for it."""
     from trust4_tpu_torch.ops import build
     from trust4_tpu_torch.utils.nativebuild import ensure_built
 
@@ -143,14 +152,51 @@ def phase_build() -> dict:
           f"native {time.perf_counter() - t1:.2f}s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
+    usage = _ptxas_usage("\n".join(build.BUILD_LOG.values()))
     sass = {}
     for name in build.kernel_names():
         sass.update(_sass_counts(build.library_path(name)))
+        for k, v in sass.items():
+            v.update(usage.get(k, {}))
         print(f"  sass {name}: " + json.dumps(
             {k: v for k, v in sass.items() if v["library"] == name}))
     return sass
+
+
+_KERNEL_NAME = re.compile(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E")
+
+
+def _kernel_key(mangled: str) -> str:
+    """'dp_counts_kernel<48,8>' from a mangled kernel name."""
+    m = _KERNEL_NAME.search(mangled)
+    args = re.findall(r"L[a-z](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def _ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes per kernel instance from nvcc's
+    ``-Xptxas -v`` output (empty for a library found built)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            cur = (_kernel_key(m.group(1)) if _KERNEL_NAME.search(m.group(1))
+                   else None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def _sass_counts(lib: str) -> dict:
@@ -158,12 +204,14 @@ def _sass_counts(lib: str) -> dict:
     library, keyed by the kernel's name and full template arguments
     ("dp_inter_kernel<32,2>"): ``total`` in the function; ``loop`` inside
     its widest backward branch (its row loop), where it has one; and for
-    the DP kernels ``per_tile_cell`` = loop / (W x jobs per thread), W
-    being their first template argument.  The DP kernels sweep all W
-    cells of a row, so that is what they issue per tile cell, beside the
-    operations the function needs per band cell (OPS_PER_CELL,
-    SCORE_OPS_PER_CELL, DIRS_OPS_PER_CELL).  The microbenchmark bodies
-    are unrolled in full, so their ``total`` holds the K operations."""
+    the DP kernels ``per_tile_cell`` = loop / the tile cells a thread
+    sweeps per row: W x jobs per thread, or W / L for the group kernels
+    (dp_counts_kernel<W,L>, dp_scores_kernel<W,L>), W being the first
+    template argument.  The DP kernels sweep all their tile cells of a
+    row, so that is what they issue per tile cell, beside the operations
+    the function needs per band cell (OPS_PER_CELL, SCORE_OPS_PER_CELL,
+    DIRS_OPS_PER_CELL).  The microbenchmark bodies are unrolled in full,
+    so their ``total`` holds the K operations."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         raise RuntimeError("cuobjdump not found")
@@ -173,9 +221,9 @@ def _sass_counts(lib: str) -> dict:
                        os.path.basename(lib)).group(1)
     out = {}
     for fn in sass.split("Function : ")[1:]:
-        m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", fn.split()[0])
-        name = m.group(1)
-        args = [int(a) for a in re.findall(r"L[a-z](\d+)E", m.group(2))]
+        key = _kernel_key(fn.split()[0])
+        name = key.split("<")[0]
+        args = [int(a) for a in key[len(name) + 1:-1].split(",")]
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         rec = {"library": library, "total": len(ins)}
@@ -186,11 +234,37 @@ def _sass_counts(lib: str) -> dict:
             lo, hi = max(loops, key=lambda x: x[1] - x[0])
             rec["loop"] = sum(lo <= a <= hi for a, _ in ins)
             if name.startswith("dp_"):
-                jobs = args[1] if name == "dp_inter_kernel" else 1
-                rec["per_tile_cell"] = round(rec["loop"] / (args[0] * jobs),
-                                             2)
-        out[f"{name}<{','.join(map(str, args))}>"] = rec
+                cells = (args[0] * args[1] if name == "dp_inter_kernel" else
+                         args[0] // args[1] if name in _GROUP_KERNELS else
+                         args[0])
+                rec["per_tile_cell"] = round(rec["loop"] / cells, 2)
+            if name in _GROUP_KERNELS:
+                # One row loop per tile width the kernel can narrow to
+                # (dp_lanes.cuh narrow_width), the wider the longer.
+                rec["per_tile_cell_by_width"] = _row_loops(
+                    ins, loops, args[0], args[1])
+        out[key] = rec
     return dict(sorted(out.items()))
+
+
+# The group kernels: template arguments <W, L>, W / L cells per lane.
+_GROUP_KERNELS = ("dp_counts_kernel", "dp_scores_kernel")
+
+
+def _row_loops(ins, loops, w: int, lanes: int) -> dict:
+    """SASS per tile cell of each row loop of a group kernel, by the tile
+    width its path sweeps: the outermost loops of 40 instructions or more,
+    longest first, matched to the widths narrow_width can pick, widest
+    first."""
+    spans = []
+    for lo, hi in sorted(loops, key=lambda x: x[0] - x[1]):
+        if not any(a <= lo and hi <= b for a, b in spans):
+            spans.append((lo, hi))
+    sizes = sorted((sum(lo <= a <= hi for a, _ in ins) for lo, hi in spans),
+                   reverse=True)
+    widths = [w] + [x for x in (32, 24, 16) if x < w and x % lanes == 0]
+    return {str(x): round(n / (x // lanes), 2)
+            for x, n in zip(widths, [n for n in sizes if n >= 40])}
 
 
 def _band_cells(t_lens, p_lens, w: int, p_max: int) -> int:
@@ -234,9 +308,119 @@ def _median_ms(fn, n: int) -> float:
     return float(np.median(times))
 
 
-def phase_kernels():
-    """The counts kernel against its plain version at every tier's full
-    chunk shape.  Returns the per-tier records."""
+def _instance_records(name, sass, key_w, t_lens, p_lens, w, cells,
+                      tile_cells, want, run, launch_one):
+    """Every built (W, L) instance of one kernel on one batch: checked
+    bit-equal to the plain version (want, on the card) in the wrapper's
+    order (dp_counts.job_order) and a random permutation, then
+    timed; returns {L: record} with ms (CUDA-event median) and device_ms
+    (back to back) of launch_one(lanes, order), one launch, and the SASS
+    counts with per band cell, registers and spills.  run(lanes, order)
+    gives the outputs held against want."""
+    from trust4_tpu_torch.ops.build import instances
+    from trust4_tpu_torch.ops.dp_counts import job_order
+
+    order = job_order(t_lens, p_lens)
+    perm = torch.from_numpy(np.random.default_rng(len(order)).permutation(
+        len(order))).to(order.device)
+    recs = {}
+    for ww, lanes in instances(name):
+        if ww != w:
+            continue
+        for o in (order, perm):
+            got = run(lanes, o)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if not torch.equal(a, b):
+                    bad = int((a != b).reshape(len(a), -1).any(1).sum())
+                    raise AssertionError(
+                        f"{name}<{w},{lanes}>: differs from the plain "
+                        f"version in {bad} jobs")
+        key = f"{key_w}<{w},{lanes}>"
+        rec = {k: sass[key].get(k) for k in ("loop", "per_tile_cell",
+                                               "registers", "spill_stores",
+                                               "spill_loads")}
+        rec["per_band_cell"] = (None if not cells or rec["per_tile_cell"]
+                                is None else
+                                rec["per_tile_cell"] * tile_cells / cells)
+        rec["ms"] = _median_ms(lambda: launch_one(lanes, order), N_TIMED)
+        recs[lanes] = rec
+    dev_ms = _device_ms([lambda ln=ln: launch_one(ln, order) for ln in recs],
+                        N_TIMED)
+    for rec, ms in zip(recs.values(), dev_ms):
+        rec["device_ms"] = ms
+    return recs
+
+
+def _pick(rec: dict, chosen: int) -> None:
+    """The chosen instance's numbers on the shape's record, beside the
+    one-thread (L = 1) instance's and the fastest instance's."""
+    inst = rec["instances"]
+    rec["chosen_lanes"] = chosen
+    rec["ms"] = inst[chosen]["ms"]
+    rec["device_ms"] = inst[chosen]["device_ms"]
+    rec["per_thread_ms"] = inst[1]["ms"]
+    rec["per_thread_device_ms"] = inst[1]["device_ms"]
+    rec["fastest_lanes"] = min(inst, key=lambda ln: inst[ln]["device_ms"])
+    rec["chosen_over_per_thread"] = (inst[chosen]["device_ms"]
+                                     / inst[1]["device_ms"])
+    rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
+    rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+    rec["cells_per_s"] = rec["cells"] / (rec["device_ms"] * 1e-3)
+
+
+# Counts shapes beside each tier's full chunk of testing.rand_gap_jobs
+# (at most four edits a job, so nearly every band fits 16 cells): the
+# same chunk with the main path's mix of band widths ("gapmix"), a
+# partial chunk (about the last chunk of a sample's tier: 0.97 / 0.54 /
+# 0.67 chunks in PERF.md section 5; 11,000 jobs at tier 2) and a small
+# batch with that mix, and at tier 2 a ragged batch of 33 jobs.
+PARTIAL_JOBS = {16: 43690, 24: 21845, 48: 11000}
+SMALL_JOBS = 2000
+RAGGED_JOBS = 33
+# Shares of each tier's unique jobs by the tile width the kernels narrow
+# them to, on the main path (the scale phase's gap_oracle.STATS
+# tier_widths, on an H100; PERF.md section 6).  Each width holds the length
+# differences |t - p| from the previous width's + 1 to its own - 12, the
+# band width W itself up to W - 11 (a tier's band is 11 + |t - p| <= W).
+GAP_WIDTH_SHARES = {16: {16: 1.0},
+                    24: {16: 0.814, 24: 0.186},
+                    48: {16: 0.569, 24: 0.329, 32: 0.085, 48: 0.016}}
+
+
+def _gapmix_jobs(rng, n: int, cap: int, w: int):
+    """rand_gap_jobs with each job's length difference redrawn so the
+    band widths follow GAP_WIDTH_SHARES[w] (query rows cut or padded with
+    random bases; zero-length rows kept)."""
+    from trust4_tpu_torch.testing import rand_gap_jobs
+
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, n, cap, w)
+    widths = sorted(GAP_WIDTH_SHARES[w])
+    shares = np.array([GAP_WIDTH_SHARES[w][x] for x in widths])
+    pick = rng.choice(len(widths), n, p=shares / shares.sum())
+    lo = np.array([0] + [x - 11 for x in widths[:-1]])[pick]
+    hi = np.array([x - 12 for x in widths[:-1]] + [w - 11])[pick]
+    d = rng.integers(lo, hi + 1)
+    live = (tl > 0) & (pl > 0)
+    longer = rng.random(n) < 0.5
+    new_pl = np.where(longer, tl + d, tl - d).clip(1, cap)
+    pl = np.where(live, new_pl, pl).astype(np.int32)
+    grow = np.arange(cap)[None, :] >= _ps_lens(_ps)[:, None]
+    pc[grow] = rng.integers(0, 4, int(grow.sum()))
+    pc[np.arange(cap)[None, :] >= pl[:, None]] = 5
+    return tc, tl, pc, pl
+
+
+def _ps_lens(ps) -> np.ndarray:
+    return np.array([len(p) for p in ps], np.int64)
+
+
+def phase_kernels(sass: dict):
+    """The counts kernel against its plain version: every (W, L) instance
+    at each tier's full chunk, the chunk, a partial and a small batch with
+    the main path's band widths, and a ragged batch, with the wrapper's
+    own launch; a native sample at the full chunks.  Returns the
+    per-shape records (full chunks first)."""
     from trust4_tpu_torch.align.native import global_alignment_counts
     from trust4_tpu_torch.ops import dp_counts
     from trust4_tpu_torch.ops.dp import banded_affine_counts_plain
@@ -244,67 +428,87 @@ def phase_kernels():
     from trust4_tpu_torch.testing import rand_gap_jobs
 
     dev = torch.device("cuda")
+    shapes = [("chunk", cap, w, chunk) for cap, w, chunk in _TIERS]
+    shapes += [(kind, cap, w, n) for cap, w, chunk in _TIERS
+               for kind, n in (("gapmix", chunk), ("partial", PARTIAL_JOBS[w]),
+                               ("small", SMALL_JOBS))]
+    cap, w, _ = _TIERS[-1]
+    shapes.append(("ragged", cap, w, RAGGED_JOBS))
     records = []
-    for cap, w, chunk in _TIERS:
-        rng = np.random.default_rng(1000 + cap)
-        ts, ps, tc, tl, pc, pl = rand_gap_jobs(rng, chunk, cap, w)
+    for kind, cap, w, n in shapes:
+        rng = np.random.default_rng(1000 + cap if kind == "chunk" else
+                                    2000 + cap + n)
+        if kind in ("chunk", "ragged"):
+            ts, ps, tc, tl, pc, pl = rand_gap_jobs(rng, n, cap, w)
+        else:
+            tc, tl, pc, pl = _gapmix_jobs(rng, n, cap, w)
         args = dp_counts.to_device_jobs(tc, tl, pc, pl, dev)
-        s_k, c_k = dp_counts.banded_affine_counts(*args, w)
-        pk_k = dp_counts.banded_affine_counts(*args, w, packed=True)
         s_p, c_p = banded_affine_counts_plain(*args, w)
         pk_p = banded_affine_counts_plain(*args, w, packed=True)
+        s_k, c_k = dp_counts.banded_affine_counts(*args, w)
+        pk_k = dp_counts.banded_affine_counts(*args, w, packed=True)
         torch.cuda.synchronize()
         for what, a, b in (("scores", s_k, s_p), ("counts", c_k, c_p),
                            ("packed", pk_k, pk_p)):
             if not torch.equal(a, b):
                 bad = int((a != b).reshape(len(a), -1).any(1).sum())
                 raise AssertionError(
-                    f"tier ({cap},{w},{chunk}): kernel {what} differ from "
-                    f"the plain version in {bad} jobs"
-                )
+                    f"counts {kind} ({cap},{w},{n}): wrapper {what} differ "
+                    f"from the plain version in {bad} jobs")
         max_abs_err = int(max((s_k - s_p).abs().max(),
                               (c_k - c_p).abs().max(),
                               (pk_k - pk_p).abs().max()))
-        counts = c_k.cpu().numpy()
-        for i in rng.choice(chunk, N_SAMPLE, replace=False):
-            want = ((0, 0, 0) if tl[i] == 0 or pl[i] == 0 else
-                    global_alignment_counts(ts[i][: tl[i]], ps[i][: pl[i]]))
-            got = tuple(int(v) for v in counts[i])
-            if got != want:
-                raise AssertionError(
-                    f"tier ({cap},{w}) job {i}: kernel {got} vs native {want}"
-                )
-        rec = {"cap": cap, "w": w, "chunk": chunk}
+        if kind == "chunk":
+            counts = c_k.cpu().numpy()
+            for i in rng.choice(n, N_SAMPLE, replace=False):
+                want = ((0, 0, 0) if tl[i] == 0 or pl[i] == 0 else
+                        global_alignment_counts(ts[i][: tl[i]],
+                                                ps[i][: pl[i]]))
+                got = tuple(int(v) for v in counts[i])
+                if got != want:
+                    raise AssertionError(f"tier ({cap},{w}) job {i}: "
+                                         f"kernel {got} vs native {want}")
+        rec = {"shape": kind, "cap": cap, "w": w, "chunk": n, "n": n}
         rec["tile_cells"] = int(np.minimum(pl, cap).astype(np.int64).sum()) * w
         rec["cells"] = _band_cells(tl, pl, w, cap)
-        rec["bytes"] = int(tc.nbytes + pc.nbytes + 8 * chunk + 16 * chunk)
-        rec["bound_ms"] = 1e3 * max(rec["bytes"] / HBM_BYTES_PER_S,
-                                    rec["cells"] * OPS_PER_CELL
-                                    / INT32_OPS_PER_S)
-        rec["bound_by"] = ("bytes" if rec["bytes"] / HBM_BYTES_PER_S
-                           > rec["cells"] * OPS_PER_CELL / INT32_OPS_PER_S
-                           else "operations")
+        rec["bytes"] = int(tc.nbytes + pc.nbytes + 8 * n + 16 * n)
+        ops_s = rec["cells"] * OPS_PER_CELL / INT32_OPS_PER_S
+        bytes_s = rec["bytes"] / HBM_BYTES_PER_S
+        rec["bound_ms"] = 1e3 * max(bytes_s, ops_s)
+        rec["bound_by"] = "bytes" if bytes_s > ops_s else "operations"
         rec["max_abs_err"] = max_abs_err
-        rec["ms"] = _median_ms(
+        # Each instance is timed in the unpacked epilogue (what the gap
+        # oracle reads); the wrapper's time adds the length sort.
+        rec["instances"] = _instance_records(
+            "dp_counts", sass, "dp_counts_kernel", args[1], args[3], w,
+            rec["cells"],
+            rec["tile_cells"], (s_p, c_p, pk_p),
+            lambda ln, o: (*dp_counts.launch(*args, w, False, ln, o),
+                           dp_counts.launch(*args, w, True, ln, o)),
+            lambda ln, o: dp_counts.launch(*args, w, False, ln, o))
+        _pick(rec, dp_counts.lanes_for(n, w))
+        rec["wrapper_ms"] = _median_ms(
             lambda: dp_counts.banded_affine_counts(*args, w), N_TIMED)
-        rec["packed_ms"] = _median_ms(
-            lambda: dp_counts.banded_affine_counts(*args, w, packed=True),
-            N_TIMED)
-        rec["plain_ms"] = _median_ms(
-            lambda: banded_affine_counts_plain(*args, w), N_TIMED)
-        rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
-        rec["cells_per_s"] = rec["cells"] / (rec["ms"] * 1e-3)
-        print(f"kernel tier {json.dumps(rec)}", flush=True)
+        if kind == "chunk":
+            rec["packed_ms"] = _median_ms(
+                lambda: dp_counts.banded_affine_counts(*args, w, packed=True),
+                N_TIMED)
+            rec["plain_ms"] = _median_ms(
+                lambda: banded_affine_counts_plain(*args, w), N_TIMED)
+        print(f"kernel {kind} {json.dumps(rec)}", flush=True)
         records.append(rec)
     return records
 
 
-def _score_inputs(shape: str):
+def _score_inputs(shape: str, w: int = 32):
     """numpy (t_codes, t_lens, p_codes, p_lens) of one scores shape: the
     entry step's pairs, bench.py's launch (the text row doubles as the
-    query, bench.py:334-337), or a mixed 65,536-pair batch inside
-    band_ok with N bases, some zero-length rows and some rows with
-    t_len - p_len >= W-5 (final cell outside the band: INT32_MIN)."""
+    query, bench.py:334-337), a mixed 65,536-pair batch inside band_ok
+    with N bases, some zero-length rows and some rows with t_len - p_len
+    >= W-5 (final cell outside the band: INT32_MIN), a realign-sized batch
+    (2,300 of the scale corpus's 100 bp reads against windows of their
+    length +-10, t_max = 116 as realign_round pads them, 2% substitutions)
+    and a ragged batch of 33 mixed rows."""
     if shape == "entry":
         rng = np.random.default_rng(1)
         tc = rng.integers(0, 4, size=(256, 128), dtype=np.int8)
@@ -315,8 +519,21 @@ def _score_inputs(shape: str):
         tc = rng.integers(0, 4, size=(65536, 152), dtype=np.int8)
         return tc, np.full(65536, 150, np.int32), tc, np.full(65536, 148,
                                                               np.int32)
-    n, cap, w = 65536, 152, 32
-    rng = np.random.default_rng(2)
+    if shape == "realign":
+        rng = np.random.default_rng(3 + w)
+        n = 2300
+        pc = rng.integers(0, 4, size=(n, 100), dtype=np.int8)
+        tl = (100 + rng.integers(-10, 11, n)).astype(np.int32)
+        tc = np.full((n, 116), 5, np.int8)
+        tc[:, :100] = pc
+        tc[:, 100:110] = rng.integers(0, 4, size=(n, 10), dtype=np.int8)
+        sub = rng.random((n, 116)) < 0.02
+        tc[sub] = rng.integers(0, 4, int(sub.sum()))
+        tc[np.arange(116)[None, :] >= tl[:, None]] = 5
+        return tc, tl, pc, np.full(n, 100, np.int32)
+    n, cap = (33 if shape == "ragged" else 65536), 152
+    rng = np.random.default_rng(2 if shape == "mixed" and w == 32 else
+                                4 + w + n)
     tc = rng.integers(0, 4, size=(n, cap), dtype=np.int8)
     tl = rng.integers(1, cap + 1, n).astype(np.int32)
     pl = np.clip(tl + rng.integers(-(w - 11), w - 10, n), 0, cap)
@@ -325,10 +542,11 @@ def _score_inputs(shape: str):
     pc[sub] = rng.integers(0, 5, int(sub.sum()))
     tc[rng.random((n, cap)) < 0.01] = 4
     pl = pl.astype(np.int32)
-    z = rng.choice(n, 600, replace=False)
-    tl[z[:300]] = 0
-    pl[z[300:]] = 0
-    far = rng.choice(n, 600, replace=False)
+    k = max(1, 600 * n // 65536)  # 600 of 65,536
+    z = rng.choice(n, 2 * k, replace=False)
+    tl[z[:k]] = 0
+    pl[z[k:]] = 0
+    far = rng.choice(n, 2 * k, replace=False)
     tl[far] = cap
     pl[far] = cap - (w - 5) - rng.integers(0, 40, len(far))
     for codes, lens in ((tc, tl), (pc, pl)):  # pad beyond each length
@@ -336,40 +554,49 @@ def _score_inputs(shape: str):
     return tc, tl, pc, pl
 
 
-def phase_scores():
-    """The scores kernel against its plain version at the entry shape,
-    the bench shape and the mixed batch.  Returns the per-shape records."""
+# Scores shapes: (name, band width).  W = 32 is entry's, the bench's and
+# the realign round's; the mixed and realign-sized batches at the other
+# widths time the instances the choice table names there.
+SCORE_SHAPES = [("entry", 32), ("bench", 32), ("mixed", 32), ("realign", 32),
+                ("ragged", 32)] + [(s, w) for w in (16, 24, 48)
+                                   for s in ("mixed", "realign")]
+
+
+def phase_scores(sass: dict):
+    """The scores kernel against its plain version: every (W, L) instance
+    at each of SCORE_SHAPES, with the wrapper's own launch; a native
+    sample on each W = 32 shape.  Returns the per-shape records."""
     from trust4_tpu_torch.align.native import global_alignment
     from trust4_tpu_torch.ops import dp_scores
     from trust4_tpu_torch.ops.dp import band_ok, banded_affine_scores_plain
     from trust4_tpu_torch.ops.dp_counts import to_device_jobs
 
     dev = torch.device("cuda")
-    w = 32
     records = []
-    for shape in ("entry", "bench", "mixed"):
-        tc, tl, pc, pl = _score_inputs(shape)
+    for shape, w in SCORE_SHAPES:
+        tc, tl, pc, pl = _score_inputs(shape, w)
         args = to_device_jobs(tc, tl, pc, pl, dev)
         s_k = dp_scores.banded_affine_scores(*args, w)
         s_p = banded_affine_scores_plain(*args, w)
         torch.cuda.synchronize()
         if not torch.equal(s_k, s_p):
             raise AssertionError(
-                f"scores {shape}: kernel differs from the plain version in "
-                f"{int((s_k != s_p).sum())} pairs"
+                f"scores {shape} W={w}: kernel differs from the plain "
+                f"version in {int((s_k != s_p).sum())} pairs"
             )
         got = s_k.cpu().numpy()
-        rng = np.random.default_rng(7)
-        ok = np.flatnonzero(band_ok(tl, pl, w) & (tl > 0) & (pl > 0))
-        alphabet = np.frombuffer(b"ACGTNN", np.uint8)
-        for i in rng.choice(ok, min(N_SAMPLE, len(ok)), replace=False):
-            t = alphabet[tc[i, : tl[i]]].tobytes().decode()
-            p = alphabet[pc[i, : pl[i]]].tobytes().decode()
-            want = global_alignment(t, p)[0]
-            if got[i] != want:
-                raise AssertionError(
-                    f"scores {shape} pair {i}: kernel {got[i]} vs native "
-                    f"{want}")
+        if w == 32:
+            rng = np.random.default_rng(7)
+            ok = np.flatnonzero(band_ok(tl, pl, w) & (tl > 0) & (pl > 0))
+            alphabet = np.frombuffer(b"ACGTNN", np.uint8)
+            for i in rng.choice(ok, min(N_SAMPLE, len(ok)), replace=False):
+                t = alphabet[tc[i, : tl[i]]].tobytes().decode()
+                p = alphabet[pc[i, : pl[i]]].tobytes().decode()
+                want = global_alignment(t, p)[0]
+                if got[i] != want:
+                    raise AssertionError(
+                        f"scores {shape} pair {i}: kernel {got[i]} vs "
+                        f"native {want}")
         rows = np.minimum(pl, pc.shape[1]).astype(np.int64)
         rec = {"shape": shape, "n": len(tl), "t_max": tc.shape[1],
                "p_max": pc.shape[1], "w": w,
@@ -382,12 +609,18 @@ def phase_scores():
         rec["bound_ms"] = 1e3 * max(ops_s, bytes_s)
         rec["bound_by"] = "bytes" if bytes_s > ops_s else "operations"
         rec["max_abs_err"] = int((s_k.long() - s_p.long()).abs().max())
-        rec["ms"] = _median_ms(
+        rec["instances"] = _instance_records(
+            "dp_scores", sass, "dp_scores_kernel", args[1], args[3], w,
+            rec["cells"],
+            rec["tile_cells"], (s_p,),
+            lambda ln, o: (dp_scores.launch(*args, w, ln, o),),
+            lambda ln, o: dp_scores.launch(*args, w, ln, o))
+        _pick(rec, dp_scores.lanes_for(len(tl), w))
+        rec["wrapper_ms"] = _median_ms(
             lambda: dp_scores.banded_affine_scores(*args, w), N_TIMED)
-        rec["plain_ms"] = _median_ms(
-            lambda: banded_affine_scores_plain(*args, w), N_TIMED)
-        rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
-        rec["cells_per_s"] = rec["cells"] / (rec["ms"] * 1e-3)
+        if w == 32 or shape == "mixed":
+            rec["plain_ms"] = _median_ms(
+                lambda: banded_affine_scores_plain(*args, w), N_TIMED)
         print(f"scores kernel {json.dumps(rec)}", flush=True)
         records.append(rec)
     return records
@@ -961,8 +1194,21 @@ def phase_scale(work: str, coord: str, imgt: str, n_reads: int) -> dict:
             raise AssertionError(f"scale phase: {suf} differs card vs cpu")
     print("scale: card and TRUST4_TPU_DEVICE=0 artifacts byte-identical",
           flush=True)
-    print(f"scale card, profiled: {json.dumps(_profiled(work, kw))}",
-          flush=True)
+    orc = res["oracle"]
+    if sum(orc["tier_launches"]) != res["launches"]:
+        raise AssertionError("scale phase: the oracle's events missed "
+                             "launches")
+    # The main path's counts launches by tier: CUDA events just around
+    # each kernel launch (gap_oracle.STATS), no profiler.
+    print("scale card, main-path counts kernel: " + json.dumps({
+        "tier_launches": orc["tier_launches"],
+        "tier_kernel_ms": orc["tier_kernel_ms"],
+        "kernel_ms": sum(orc["tier_kernel_ms"]),
+        "tier_unique": orc["tier_unique"],
+        "tier_widths": orc["tier_widths"]}), flush=True)
+    prof = _profiled(work, kw)
+    prof["event_kernel_ms"] = sum(orc["tier_kernel_ms"])
+    print(f"scale card, profiled: {json.dumps(prof)}", flush=True)
     return res
 
 
@@ -976,16 +1222,20 @@ def _profiled(work: str, kw: dict) -> dict:
     os.makedirs(os.path.join(work, "prof"))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = _run(os.path.join(work, "prof", "bulk"), device="cuda", **kw)
-    busy = {"kernel_ms": 0.0, "copy_ms": 0.0, "other_ms": 0.0}
+    busy = {"kernel_ms": 0.0, "copy_ms": 0.0, "sort_ms": 0.0,
+            "other_ms": 0.0, "kernel_launches": 0}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         kind = ("kernel_ms" if "dp_counts_kernel" in ev.key else
-                "copy_ms" if "Memcpy" in ev.key else "other_ms")
+                "copy_ms" if "Memcpy" in ev.key else
+                "sort_ms" if "sort" in ev.key.lower() else "other_ms")
         busy[kind] += ev.self_device_time_total / 1e3
+        if kind == "kernel_ms":
+            busy["kernel_launches"] += ev.count
     busy["wall_ms"] = res["wall_s"] * 1e3
     busy["idle_share"] = 1.0 - sum(
-        busy[k] for k in ("kernel_ms", "copy_ms", "other_ms")
+        busy[k] for k in ("kernel_ms", "copy_ms", "sort_ms", "other_ms")
     ) / busy["wall_ms"]
     return busy
 
@@ -999,8 +1249,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     sass = phase_build()
-    tiers = phase_kernels()
-    shapes = phase_scores()
+    counts_shapes = phase_kernels(sass)
+    tiers = [r for r in counts_shapes if r["shape"] == "chunk"]
+    shapes = phase_scores(sass)
     entry_launches = phase_entry()
 
     from trust4_tpu_torch.testing import write_standin_references
@@ -1020,25 +1271,33 @@ def main() -> int:
     mb_launches, mb_cases = phase_microbench(sass)
 
     # The kernel line reports the counts kernel's largest tier (the main
-    # path's heaviest launches; every tier is in "tiers") and the scores
-    # kernel's bench shape (every shape is in "shapes").
+    # path's heaviest launches; every shape is in "shapes", the full
+    # chunks also in "tiers") and the scores kernel's bench shape (every
+    # shape is in "shapes").  ms is the instance the wrapper chose,
+    # per_thread_ms the one-thread (L = 1) instance's in this call.
     top = tiers[-1]
     bench = shapes[1]
+    per_shape = ("shape", "n", "w", "chosen_lanes", "fastest_lanes", "ms",
+                 "device_ms", "per_thread_ms", "per_thread_device_ms",
+                 "wrapper_ms", "bound_ms", "bound_by", "plain_ms")
     kernels = [{
         "name": "dp_counts",
         "route": "cuda",
         "source": "trust4_tpu_torch/csrc/dp_counts.cu",
         "replaces": "trust4_tpu/ops/dp_pallas.py:768",
         "launches": scale["launches"],
-        "max_abs_err": max(t["max_abs_err"] for t in tiers),
+        "max_abs_err": max(t["max_abs_err"] for t in counts_shapes),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
+        "per_thread_ms": top["per_thread_ms"],
+        "main_path_kernel_ms": sum(scale["oracle"]["tier_kernel_ms"]),
         "tiers": [{k: t[k] for k in ("cap", "w", "chunk", "ms",
                                      "packed_ms", "plain_ms", "bound_ms",
                                      "cells_per_s")} for t in tiers],
+        "shapes": [{k: r.get(k) for k in per_shape} for r in counts_shapes],
     }, {
         "name": "dp_scores",
         "route": "cuda",
@@ -1051,9 +1310,10 @@ def main() -> int:
         "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"],
         "library_ms": None,
-        "shapes": [{k: r[k] for k in ("shape", "n", "t_max", "p_max", "w",
-                                      "ms", "plain_ms", "bound_ms",
-                                      "cells_per_s")} for r in shapes],
+        "per_thread_ms": bench["per_thread_ms"],
+        "shapes": [{k: r.get(k) for k in per_shape + ("t_max", "p_max",
+                                                     "cells_per_s")}
+                   for r in shapes],
     }]
     # The dirs kernel's top tier (its heaviest launch; every tier and the
     # mixed batch are in "shapes"); the lab kernels at the bench shape;

@@ -47,6 +47,82 @@ def test_kernel_matches_plain(card, cap, w):
                        banded_affine_counts_plain(*args, w, packed=True))
 
 
+def _permutations(t_lens, p_lens, seed):
+    """The wrappers' order (dp_counts.job_order) and a random
+    permutation, on the card."""
+    order = dp_counts.job_order(t_lens, p_lens)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        len(p_lens))).to(p_lens.device)
+    return order, perm
+
+
+@pytest.mark.parametrize("cap,w,n", [(16, 16, 65536), (48, 24, 32768),
+                                     (144, 48, 16384), (144, 48, 11000),
+                                     (48, 24, 33), (144, 48, 1)])
+def test_counts_instances_match_plain(card, cap, w, n):
+    """Every (W, L) instance the library exports, at the tier chunks, a
+    partial chunk and ragged batches, in the wrapper's order and a random
+    permutation, in both epilogues."""
+    from trust4_tpu_torch.ops.build import instances
+
+    rng = np.random.default_rng(7000 + n + w)
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, n, cap, w)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    s_p, c_p = banded_affine_counts_plain(*args, w)
+    pk_p = banded_affine_counts_plain(*args, w, packed=True)
+    lanes = [ln for ww, ln in instances("dp_counts") if ww == w]
+    assert {1, 4, 8} <= set(lanes)
+    for order in _permutations(args[1], args[3], n):
+        for ln in lanes:
+            s_k, c_k = dp_counts.launch(*args, w, False, ln, order)
+            pk_k = dp_counts.launch(*args, w, True, ln, order)
+            torch.cuda.synchronize()
+            assert torch.equal(s_k, s_p) and torch.equal(c_k, c_p), ln
+            assert torch.equal(pk_k, pk_p), ln
+
+
+@pytest.mark.parametrize("shape", ["random", "realign", "ragged"])
+def test_scores_instances_match_plain(card, shape):
+    """Every (W, L) instance the library exports: random rows at every
+    band width, a realign-sized batch (2,300 100-bp reads against windows
+    of their length +-10, W=32) and a ragged batch of 33, in the
+    wrapper's order and a random permutation."""
+    from trust4_tpu_torch.ops.build import instances
+
+    rng = np.random.default_rng(["random", "realign", "ragged"].index(shape))
+    for w in dp_scores.BANDS:
+        if shape == "realign" and w != 32:
+            continue
+        n, t_max, p_max = {"random": (3000, 152, 140), "realign":
+                           (2300, 110, 100), "ragged": (33, 60, 52)}[shape]
+        tc = rng.integers(0, 6, (n, t_max)).astype(np.int8)
+        pc = rng.integers(0, 6, (n, p_max)).astype(np.int8)
+        if shape == "realign":
+            pl = np.full(n, 100, np.int32)
+            tl = (100 + rng.integers(-10, 11, n)).astype(np.int32)
+        else:
+            tl = rng.integers(0, t_max + 1, n).astype(np.int32)
+            pl = np.clip(tl + rng.integers(-w, w, n), 0, p_max).astype(
+                np.int32)
+        args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+        want = banded_affine_scores_plain(*args, w)
+        for order in _permutations(args[1], args[3], w):
+            for ww, ln in instances("dp_scores"):
+                if ww == w:
+                    got = dp_scores.launch(*args, w, ln, order)
+                    assert torch.equal(got, want), (w, ln)
+
+
+def test_choice_tables_name_exported_instances(card):
+    from trust4_tpu_torch.ops.build import instances
+
+    for mod, name in ((dp_counts, "dp_counts"), (dp_scores, "dp_scores")):
+        built = set(instances(name))
+        assert {w for w, _ in built} == set(mod.BANDS)
+        for (w, _cls), lanes in mod.CHOICE.items():
+            assert (w, lanes) in built, (name, w, lanes)
+
+
 def test_wrapper_checks_inputs(card):
     tc = torch.zeros((4, 16), dtype=torch.int8, device=card)
     tl = torch.zeros(4, dtype=torch.int32, device=card)

@@ -225,10 +225,14 @@ def test_header_matches_plain_on_arbitrary_jobs(host_lib, t_max, p_max, w):
 
 
 def test_cuda_source_includes_the_tested_header():
+    """The kernel runs the group sweep (tests/test_torch_dp_group.py),
+    which builds on this header's constants and edge rules."""
     with open(os.path.join(CSRC_DIR, "dp_counts.cu")) as f:
         src = f.read()
-    assert '#include "dp_counts.cuh"' in src
-    assert "t4dp::dp_counts_job<W>" in src
+    assert '#include "dp_counts_group.cuh"' in src
+    assert "t4dp::dp_counts_narrow<W, L>" in src
+    with open(os.path.join(CSRC_DIR, "dp_counts_group.cuh")) as f:
+        assert '#include "dp_counts.cuh"' in f.read()
 
 
 def _host_scores(lib, tc, tl, pc, pl, w):
@@ -263,10 +267,14 @@ def test_scores_header_matches_plain(host_lib, t_max, p_max, w):
 
 
 def test_scores_cuda_source_includes_the_tested_header():
+    """The kernel runs the group sweep (tests/test_torch_dp_group.py),
+    which builds on this header's constants and text clamp."""
     with open(os.path.join(CSRC_DIR, "dp_scores.cu")) as f:
         src = f.read()
-    assert '#include "dp_scores.cuh"' in src
-    assert "t4dp::dp_scores_job<W>" in src
+    assert '#include "dp_scores_group.cuh"' in src
+    assert "t4dp::dp_scores_narrow<W, L>" in src
+    with open(os.path.join(CSRC_DIR, "dp_scores_group.cuh")) as f:
+        assert '#include "dp_scores.cuh"' in f.read()
 
 
 def _arbitrary_jobs(seed, n, t_max, p_max, w):

@@ -2,16 +2,26 @@
 // _dp_counts_kernel, trust4_tpu/ops/dp_pallas.py:768-968, at both of its
 // launch sites: l.1021, scores + (N,3) counts, and l.1104, packed counts).
 //
-// Design: one thread per job; the job's arithmetic is dp_counts_job in
-// dp_counts.cuh, a row loop over the query with a left-to-right sweep of
-// the W band cells.  What bounds it on an H100: integer issue.  A job is
-// about p_len * W cells of ~40 int32 operations each, while its input is
-// 2 * cap bytes of codes and 8 bytes of lengths, so a full tier-2 chunk
-// (16,384 jobs x 144 rows x 48 cells) does ~4.5G operations on ~5 MB.
-// This first version keeps the band in per-thread registers and reads the
-// code rows straight from global memory (each thread walks its own rows,
-// so the reads are not coalesced; L1 absorbs them).  Spreading a band
-// across warp lanes with shuffles is later work.
+// What bounds it on an H100: integer issue.  A job is about p_len x band
+// cells of ~25 int32 operations each, while its input is 2 x cap bytes of
+// codes and 8 bytes of lengths, so a full tier-2 chunk (16,384 jobs x 144
+// rows x 48 cells) is ~1e9 operations on ~5 MB.  With one thread per job
+// a tier chunk gives each of the card's 528 schedulers one to four warps
+// and no way to hide a dependent integer chain, and a realign-sized batch
+// leaves most SMs idle.
+//
+// Design: each job's band is spread across a group of L lanes, C = W/L
+// cells per lane in registers; the row's two in-row dependencies (the F
+// running max, the CM/CF transfer maps) are combined across the group in
+// log2(L) shuffle steps (dp_counts_group.cuh; L = 1 is the one-thread
+// sweep).  32/L jobs share a warp; a 128-thread block stages its jobs'
+// code rows in shared memory with one coalesced cooperative load; jobs
+// arrive sorted by query length (``order``), so the groups of a warp end
+// together, and outputs go to each job's own index.  A warp sweeps the
+// narrowest tile of 16, 24 or 32 cells that holds all its jobs' bands
+// (band_need in dp_lanes.cuh): the cells of a wider tile beyond the band
+// never reach the result.  The kernel is built
+// for the (W, L) pairs of T4DP_COUNTS_INSTANCES; the wrapper picks L.
 //
 // Plain C interface for ctypes (ops/build.py, ops/dp_counts.py): every
 // pointer and the stream are void*, and the function returns the
@@ -20,71 +30,119 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dp_counts.cuh"
+#include "dp_counts_group.cuh"
 
 namespace {
 
-template <int W>
-__global__ void dp_counts_kernel(const int8_t* __restrict__ t_codes,
-                                 const int32_t* __restrict__ t_lens,
-                                 const int8_t* __restrict__ p_codes,
-                                 const int32_t* __restrict__ p_lens, int n,
-                                 int t_max, int p_max, int packed,
-                                 int32_t* __restrict__ scores,
-                                 int32_t* __restrict__ counts) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  int score, pk;
-  t4dp::dp_counts_job<W>(t_codes + (size_t)b * t_max, t_max,
-                         p_codes + (size_t)b * p_max, p_max, t_lens[b],
-                         p_lens[b], &score, &pk);
-  if (packed) {
-    counts[b] = pk;
-  } else {
-    scores[b] = score;
-    counts[3 * (size_t)b + 0] = (pk >> 20) & t4dp::kPkField;
-    counts[3 * (size_t)b + 1] = (pk >> 10) & t4dp::kPkField;
-    counts[3 * (size_t)b + 2] = pk & t4dp::kPkField;
+constexpr int kBlock = 128;
+
+// Copies the code rows of the block's jobs into shared memory: job q of
+// the block at q * (t_max + p_max), its query row after its text row.
+__device__ void stage_rows(const int8_t* __restrict__ t_codes,
+                           const int8_t* __restrict__ p_codes,
+                           const int64_t* __restrict__ order, int g0,
+                           int jobs, int t_max, int p_max, int8_t* rows) {
+  const int stride = t_max + p_max;
+  for (int idx = threadIdx.x; idx < jobs * t_max; idx += kBlock) {
+    const int q = idx / t_max, off = idx - q * t_max;
+    rows[q * stride + off] = t_codes[order[g0 + q] * t_max + off];
+  }
+  for (int idx = threadIdx.x; idx < jobs * p_max; idx += kBlock) {
+    const int q = idx / p_max, off = idx - q * p_max;
+    rows[q * stride + t_max + off] = p_codes[order[g0 + q] * p_max + off];
   }
 }
 
-template <int W>
+template <int W, int L>
+__global__ void __launch_bounds__(kBlock)
+    dp_counts_kernel(const int8_t* __restrict__ t_codes,
+                     const int32_t* __restrict__ t_lens,
+                     const int8_t* __restrict__ p_codes,
+                     const int32_t* __restrict__ p_lens,
+                     const int64_t* __restrict__ order, int n, int t_max,
+                     int p_max, int packed, int32_t* __restrict__ scores,
+                     int32_t* __restrict__ counts) {
+  extern __shared__ int8_t rows[];
+  constexpr int kJobs = kBlock / L;
+  const int g0 = blockIdx.x * kJobs;
+  stage_rows(t_codes, p_codes, order, g0, min(kJobs, n - g0), t_max, p_max,
+             rows);
+  __syncthreads();
+
+  // Every lane runs to the end: the group's exchanges need the whole
+  // warp.  A slot past n sweeps with no job and writes nothing.
+  const int q = threadIdx.x / L;
+  const int g = g0 + q;
+  const int b = g < n ? static_cast<int>(order[g]) : -1;
+  const int8_t* row = rows + q * (t_max + p_max);
+  const t4dp::CudaLanes<L> x{static_cast<int>(threadIdx.x % L)};
+  int score[1], pk[1];
+  bool own[1];
+  const int t_len = b >= 0 ? t_lens[b] : 0;
+  const int p_len = b >= 0 ? p_lens[b] : 0;
+  const int need = b >= 0 ? t4dp::band_need(t_len, p_len) : 0;
+  t4dp::dp_counts_narrow<W, L>(x, need, row, t_max, row + t_max, p_max, t_len,
+                           p_len, score, pk, own);
+  if (b >= 0 && own[0])
+    t4dp::store_counts(packed, b, score[0], pk[0], scores, counts);
+}
+
+template <int W, int L>
 cudaError_t launch(const void* t, const void* tl, const void* p,
-                   const void* pl, int n, int t_max, int p_max, int packed,
-                   void* scores, void* counts, cudaStream_t stream) {
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  dp_counts_kernel<W><<<grid, block, 0, stream>>>(
+                   const void* pl, const void* order, int n, int t_max,
+                   int p_max, int packed, void* scores, void* counts,
+                   cudaStream_t stream) {
+  constexpr int kJobs = kBlock / L;
+  const size_t smem = (size_t)kJobs * (t_max + p_max);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        dp_counts_kernel<W, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
+  }
+  const int grid = (n + kJobs - 1) / kJobs;
+  dp_counts_kernel<W, L><<<grid, kBlock, smem, stream>>>(
       static_cast<const int8_t*>(t), static_cast<const int32_t*>(tl),
-      static_cast<const int8_t*>(p), static_cast<const int32_t*>(pl), n,
-      t_max, p_max, packed, static_cast<int32_t*>(scores),
-      static_cast<int32_t*>(counts));
+      static_cast<const int8_t*>(p), static_cast<const int32_t*>(pl),
+      static_cast<const int64_t*>(order), n, t_max, p_max, packed,
+      static_cast<int32_t*>(scores), static_cast<int32_t*>(counts));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// t: (n, t_max) int8, tl: (n,) int32, p: (n, p_max) int8, pl: (n,) int32.
+// t: (n, t_max) int8, tl: (n,) int32, p: (n, p_max) int8, pl: (n,) int32,
+// order: (n,) int64, a permutation of the jobs (the launch order).
 // packed == 0: scores (n,) int32 and counts (n, 3) int32; packed != 0:
 // counts (n,) int32 of m<<20 | mm<<10 | ind, scores unused (may be null).
-// w must be 16, 24 or 48 (the gap-oracle tiers).
+// (w, lanes) must be one of T4DP_COUNTS_INSTANCES.
 extern "C" int t4_dp_counts(const void* t, const void* tl, const void* p,
-                            const void* pl, int n, int t_max, int p_max,
-                            int w, int packed, void* scores, void* counts,
+                            const void* pl, const void* order, int n,
+                            int t_max, int p_max, int w, int lanes,
+                            int packed, void* scores, void* counts,
                             void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (w) {
-    case 16:
-      return launch<16>(t, tl, p, pl, n, t_max, p_max, packed, scores,
-                        counts, s);
-    case 24:
-      return launch<24>(t, tl, p, pl, n, t_max, p_max, packed, scores,
-                        counts, s);
-    case 48:
-      return launch<48>(t, tl, p, pl, n, t_max, p_max, packed, scores,
-                        counts, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define CASE(W_, L_)                                                   \
+  if (w == W_ && lanes == L_)                                          \
+    return launch<W_, L_>(t, tl, p, pl, order, n, t_max, p_max, packed, \
+                          scores, counts, s);
+  T4DP_COUNTS_INSTANCES(CASE)
+#undef CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The (w, lanes) pairs the library is built for, as 2 x count ints in out
+// (at most cap pairs); returns the count.
+extern "C" int t4_dp_counts_instances(int* out, int cap) {
+  int k = 0;
+#define PAIR(W_, L_)  \
+  if (k < cap) {      \
+    out[2 * k] = W_;  \
+    out[2 * k + 1] = L_; \
+  }                   \
+  ++k;
+  T4DP_COUNTS_INSTANCES(PAIR)
+#undef PAIR
+  return k;
 }

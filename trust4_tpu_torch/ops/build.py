@@ -38,10 +38,12 @@ NVCC_FLAGS = [
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dp_counts": {
-        "t4_dp_counts": ([_VP] * 4 + [_CI] * 5 + [_VP] * 3, _CI),
+        "t4_dp_counts": ([_VP] * 5 + [_CI] * 6 + [_VP] * 3, _CI),
+        "t4_dp_counts_instances": ([_VP, _CI], _CI),
     },
     "dp_scores": {
-        "t4_dp_scores": ([_VP] * 4 + [_CI] * 4 + [_VP] * 2, _CI),
+        "t4_dp_scores": ([_VP] * 5 + [_CI] * 5 + [_VP] * 2, _CI),
+        "t4_dp_scores_instances": ([_VP, _CI], _CI),
     },
     "dp_dirs": {
         "t4_dp_dirs": ([_VP] * 4 + [_CI] * 4 + [_VP] * 3, _CI),
@@ -140,3 +142,11 @@ def load(name: str) -> ctypes.CDLL:
             f.restype = restype
         _loaded[name] = lib
     return lib
+
+
+def instances(name: str) -> List[tuple]:
+    """(band width, lanes) pairs that csrc/<name>.cu's library is built
+    for (its ``t4_<name>_instances``)."""
+    buf = (ctypes.c_int * 128)()
+    k = getattr(load(name), f"t4_{name}_instances")(buf, 64)
+    return [(buf[2 * i], buf[2 * i + 1]) for i in range(min(k, 64))]

@@ -7,6 +7,14 @@ trust4_tpu/ops/dp_pallas.py:55) with one signature: a CPU tensor runs the
 plain PyTorch version (ops/dp.py, any band width); a CUDA tensor launches
 the CUDA kernel on the current stream or raises.  It never falls back
 from one to the other.
+
+The kernel spreads each job's band over a group of L lanes
+(csrc/dp_scores_group.cuh); it is built for several L per band width, and
+``CHOICE`` picks the one launched by band width and batch size, from
+chip_smoke.py's timings of every instance (PERF.md).  Jobs go to the
+kernel sorted by length difference, then query length
+(``dp_counts.job_order``), so a warp's jobs share a tile width and its
+groups end together.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from trust4_tpu_torch.ops.dp import banded_affine_scores_plain
+from trust4_tpu_torch.ops.dp_counts import job_order
 
 # Band widths the kernel is compiled for: 32 serves entry, the bench shape
 # and the realign round; 16/24/48 are the gap-oracle tiers' widths.
@@ -21,6 +30,31 @@ BANDS = (16, 24, 32, 48)
 
 # Kernel launches made by this process (one per call on a CUDA tensor).
 LAUNCHES = 0
+
+# Batch-size classes: fewer than SMALL_JOBS pairs (entry's step, a realign
+# pass) or more (bench.py's launch).
+SMALL_JOBS = 4096
+
+# Lanes per job of the instance launched, by (band width, class): the
+# fastest back-to-back device time of every instance at chip_smoke.py's
+# scores shapes (PERF.md, section 6; a small batch at W=32 is timed on
+# entry's 256 pairs and a realign pass's 2,300, and takes the realign
+# pass's choice, 11 launches to entry's one).
+CHOICE = {
+    (16, "small"): 16, (16, "large"): 1,
+    (24, "small"): 8, (24, "large"): 1,
+    (32, "small"): 8, (32, "large"): 1,
+    (48, "small"): 8, (48, "large"): 8,
+}
+
+
+def job_class(n: int) -> str:
+    return "small" if n < SMALL_JOBS else "large"
+
+
+def lanes_for(n: int, band_width: int) -> int:
+    """Lanes per job of the instance the wrapper launches for n pairs."""
+    return CHOICE[(band_width, job_class(n))]
 
 
 def _check(t_codes, t_lens, p_codes, p_lens, band_width):
@@ -53,7 +87,6 @@ def banded_affine_scores(
     """(N,) int32 final ``m[p_len][t_len]`` per pair, as
     banded_affine_scores_plain (INT32_MIN where the final cell lies
     outside the band)."""
-    global LAUNCHES
     if t_codes.dim() != 2:
         raise ValueError("t_codes must be (N, T)")
     if t_codes.device.type == "cpu":
@@ -62,11 +95,27 @@ def banded_affine_scores(
     if t_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {t_codes.device}")
     _check(t_codes, t_lens, p_codes, p_lens, band_width)
+    return launch(t_codes, t_lens, p_codes, p_lens, band_width,
+                  lanes_for(t_codes.shape[0], band_width),
+                  job_order(t_lens, p_lens))
+
+
+def launch(t_codes, t_lens, p_codes, p_lens, band_width: int, lanes: int,
+           order: torch.Tensor) -> torch.Tensor:
+    """One launch of the (band_width, lanes) instance on inputs that
+    passed _check, taking the pairs in ``order`` ((N,) int64 on the card,
+    a permutation); the scores are in input order.  The wrapper's own
+    path; chip_smoke.py and the card tests call it to time and check
+    every instance."""
+    global LAUNCHES
     n = t_codes.shape[0]
     dev = t_codes.device
     scores = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return scores
+    if order.dtype != torch.int64 or order.shape != (n,) or \
+            order.device != dev:
+        raise ValueError("order must be (N,) int64 on the inputs' device")
 
     from trust4_tpu_torch.ops.build import load
 
@@ -75,8 +124,8 @@ def banded_affine_scores(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.t4_dp_scores(
             t_codes.data_ptr(), t_lens.data_ptr(), p_codes.data_ptr(),
-            p_lens.data_ptr(), n, t_codes.shape[1], p_codes.shape[1],
-            band_width, scores.data_ptr(), stream,
+            p_lens.data_ptr(), order.data_ptr(), n, t_codes.shape[1],
+            p_codes.shape[1], band_width, lanes, scores.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"t4_dp_scores launch failed: cudaError {rc}")

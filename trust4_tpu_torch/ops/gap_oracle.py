@@ -44,8 +44,12 @@ _TIERS = ((16, 16, 65536), (48, 24, 32768), (144, 48, 16384))
 _RC_FLAG = 1 << 30
 
 # Per-process totals of what the oracle did, read by chip_smoke.py and
-# the tests: gap fills seen, per-tier jobs and unique jobs, beyond-tier
-# jobs, and wall seconds per phase.
+# the tests: gap fills seen, per-tier jobs and unique jobs, the unique
+# jobs by the tile width the kernel narrows them to
+# (dp_counts.band_widths), beyond-tier jobs, wall seconds per phase, and
+# on the card per-tier kernel launches and their device ms (CUDA events
+# just around each kernel launch, read once the results are copied back:
+# no extra synchronisation).
 STATS = {}
 
 
@@ -53,7 +57,9 @@ def reset_stats() -> None:
     STATS.clear()
     STATS.update(
         batches=0, gap_fills=0, tier_jobs=[0] * len(_TIERS),
-        tier_unique=[0] * len(_TIERS), miss=0, dedup_s=0.0, emit_s=0.0,
+        tier_unique=[0] * len(_TIERS), tier_launches=[0] * len(_TIERS),
+        tier_kernel_ms=[0.0] * len(_TIERS),
+        tier_widths=[{} for _ in _TIERS], miss=0, dedup_s=0.0, emit_s=0.0,
         device_s=0.0, cpu_left_s=0.0, check_s=0.0,
     )
 
@@ -123,6 +129,7 @@ def gap_counts(nat, query_jobs, gap_jobs: np.ndarray, seqs,
     the bit-30 rc flag); seqs: the queried SeqSet's wrappers (check mode).
     """
     from trust4_tpu_torch.ops.dp_counts import (
+        band_widths,
         banded_affine_counts,
         to_device_jobs,
     )
@@ -160,6 +167,8 @@ def gap_counts(nat, query_jobs, gap_jobs: np.ndarray, seqs,
     # Emit each tier's code rows and launch it chunk by chunk; the
     # launches are asynchronous on the card.
     pending = []  # (unique ordinals, (chunk, 3) counts tensor)
+    timed = []  # (tier, start event, end event), on the card
+    on_card = device.type == "cuda"
     for ti, (s_cap, w_cap, chunk) in enumerate(_TIERS):
         usel = np.nonzero(uniq_tier == ti)[0]
         STATS["tier_jobs"][ti] += int((tier_of == ti).sum())
@@ -173,6 +182,10 @@ def gap_counts(nat, query_jobs, gap_jobs: np.ndarray, seqs,
         )
         tl = np.minimum(t_lens[gsel], s_cap).astype(np.int32)
         pl = np.minimum(r_lens[gsel], s_cap).astype(np.int32)
+        widths = STATS["tier_widths"][ti]
+        for wd, cnt in zip(*np.unique(band_widths(tl, pl, w_cap),
+                                      return_counts=True)):
+            widths[int(wd)] = widths.get(int(wd), 0) + int(cnt)
         STATS["emit_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for at in range(0, len(usel), chunk):
@@ -180,7 +193,13 @@ def gap_counts(nat, query_jobs, gap_jobs: np.ndarray, seqs,
             tc_d, tl_d, pc_d, pl_d = to_device_jobs(
                 t_codes[at:hi], tl[at:hi], p_codes[at:hi], pl[at:hi], device
             )
-            _scores, cnt = banded_affine_counts(tc_d, tl_d, pc_d, pl_d, w_cap)
+            kw = {}
+            if on_card:
+                kw["events"] = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
+                timed.append((ti, *kw["events"]))
+            _scores, cnt = banded_affine_counts(tc_d, tl_d, pc_d, pl_d, w_cap,
+                                                **kw)
             pending.append((usel[at:hi], cnt))
         STATS["device_s"] += time.perf_counter() - t0
 
@@ -197,6 +216,9 @@ def gap_counts(nat, query_jobs, gap_jobs: np.ndarray, seqs,
     t0 = time.perf_counter()
     for usel_part, cnt in pending:
         uniq_counts[usel_part] = cnt.cpu().numpy()
+    for ti, ev0, ev1 in timed:  # complete: the copies above waited
+        STATS["tier_launches"][ti] += 1
+        STATS["tier_kernel_ms"][ti] += ev0.elapsed_time(ev1)
     if dev_all:
         counts[:] = uniq_counts[inverse]
     else:
