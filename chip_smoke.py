@@ -71,7 +71,21 @@ It drives the port only (never jax, never trust4_tpu):
 11. microbench phase: ``trust4_tpu_torch.tools.vpu_microbench`` (every
    body and size; launches counted from 0 around it); each body's output
    equal to the plain body's, with ms per launch, ns/op and the body's
-   SASS instruction count.
+   SASS instruction count;
+12. modes phase (run after the ranks phase): the entry points other than
+   bulk FASTQ, each part on the card (launches of the counts kernel
+   counted from 0 around it, which must be at least 1) and with
+   TRUST4_TPU_DEVICE=0, every file byte-identical: (a) a barcoded run of
+   a 5,000-cell 10x-style corpus with a whitelist; (b) a bulk BAM of
+   250,000 pairs (``testing.write_standin_bam``, against the coordinate
+   stand-in); (c) the barcoded tests/data/bambc/bc.bam (also held to its
+   goldens) and 20,000 barcoded pairs from the writer; (d) a 96-cell
+   SMART-seq plate of 2,000 pairs a cell through ``run_smartseq``; (e)
+   each mode of tests/data/modes (also held to its golden); (f) the
+   scale corpus with TRUST4_TPU_DEVICE_TIMEOUT_S=1 in a fresh process
+   (byte-identical to the scale phase's TRUST4_TPU_DEVICE=0 run) and, in
+   child processes, the hang hooks, which must raise GapDeviceTimeout
+   within their deadlines and exit non-zero.
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
@@ -1127,6 +1141,28 @@ def _zero_counts() -> None:
     dp_scores.LAUNCHES = 0
 
 
+def _join_prewarm(dev) -> int:
+    """Join this process's gap-oracle prewarm on ``dev`` (starting it if
+    none ran) before any launch count is set to 0, so that no part counts
+    the prewarm's launches; returns the launches made while joining, and
+    fails if there were none (the prewarm never reached the card)."""
+    from trust4_tpu_torch.ops import dp_counts, gap_oracle
+
+    n0 = dp_counts.LAUNCHES
+    gap_oracle.wait_ready(dev)
+    torch.cuda.synchronize()
+    n = dp_counts.LAUNCHES - n0
+    if n == 0:
+        raise AssertionError(f"the prewarm on {dev} launched nothing")
+    return n
+
+
+def _prewarm_launches() -> int:
+    from trust4_tpu_torch.ops import gap_oracle
+
+    return gap_oracle.STATS["prewarm_launches"]
+
+
 def _ranks_body(spec: dict) -> dict:
     """One rank of a world of the ranks phase: (a) mesh_tier_counts at
     each tier's full chunk over the whole world; in a world of 4 (b) the
@@ -1134,7 +1170,9 @@ def _ranks_body(spec: dict) -> dict:
     the scale run's annotation stage under TRUST4_TPU_GAP_MESH and (d) the
     barcoded assembly through the mesh executor.  Each part is driven
     with the launch counts set to 0 just before it and read just after;
-    any difference, or a part that launched no kernel, raises."""
+    any difference, or a part that launched no kernel, raises.  The
+    rank's prewarm is joined before the first part, and a part inside
+    which a prewarm launched raises: no part counts its launches."""
     import torch.distributed as dist
 
     from trust4_tpu_torch.ops.gap_oracle import _TIERS
@@ -1150,16 +1188,20 @@ def _ranks_body(spec: dict) -> dict:
     rank, n = dist.get_rank(), dist.get_world_size()
     dev = spec["device"]
     rec = {"rank": rank, "ranks": n, "backend": dist.get_backend(),
-           "parts": {}}
+           "parts": {}, "prewarm_launches": _join_prewarm(dev)}
 
     def part(name, fn, kernel):
         torch.cuda.synchronize()
+        pw0 = _prewarm_launches()
         _zero_counts()
         t0 = time.perf_counter()
         info = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _rank_counts()
+        if _prewarm_launches() != pw0:
+            raise AssertionError(f"ranks {name}: a prewarm launched inside "
+                                 f"the part on rank {rank} of {n}")
         if launches[kernel] == 0:
             raise AssertionError(f"ranks {name}: rank {rank} of {n} never "
                                  f"launched {kernel}")
@@ -1270,7 +1312,8 @@ def _ranks_body(spec: dict) -> dict:
 def phase_ranks(work: str, coord: str, imgt: str, realign_card) -> dict:
     """The multi-GPU layer on one card: worlds of 1 (NCCL), 2 and 4
     (gloo) ranks over cuda:0, spawned by parallel/mesh.py (see
-    _ranks_body).  Returns the launches by kernel over every rank."""
+    _ranks_body).  Returns the launches by kernel over every rank, and
+    the ranks' prewarms' launches apart."""
     from tools.make_bench_corpus import make_barcoded_corpus
     from trust4_tpu_torch.ops import dp_counts
     from trust4_tpu_torch.ops.gap_oracle import _TIERS
@@ -1323,6 +1366,7 @@ def phase_ranks(work: str, coord: str, imgt: str, realign_card) -> dict:
             "imgt": imgt, "work": work, "barcoded": bc, "bc_pool": pool,
             "bc_threads": bc_threads}
     launches = {"dp_counts": 0, "dp_scores": 0}
+    prewarm_launches = 0
     worlds = {}
     for n, backend, device in ((1, "nccl", "cuda"), (2, "gloo", "cuda:0"),
                                (4, "gloo", "cuda:0")):
@@ -1330,8 +1374,10 @@ def phase_ranks(work: str, coord: str, imgt: str, realign_card) -> dict:
         recs = spawn(_ranks_body, n, backend=backend, device=device,
                      args=({**spec, "device": device},), timeout_s=900)
         wall = time.perf_counter() - t0
+        prewarm_launches += sum(r["prewarm_launches"] for r in recs)
         print(f"ranks: world of {n} rank(s), backend {backend}, device "
-              f"{device}, spawn to join {wall:.3f} s", flush=True)
+              f"{device}, spawn to join {wall:.3f} s; prewarm launches by "
+              f"rank {[r['prewarm_launches'] for r in recs]}", flush=True)
         for name in recs[0]["parts"]:
             per = [r["parts"].get(name) for r in recs]
             per = [p for p in per if p is not None]
@@ -1346,8 +1392,10 @@ def phase_ranks(work: str, coord: str, imgt: str, realign_card) -> dict:
                      else ""), flush=True)
         worlds[n] = {"wall_s": wall, "backend": backend, "ranks": recs}
     print(f"ranks: every part equal to one card; launches over all ranks "
-          f"{json.dumps(launches)}", flush=True)
-    return {"launches": launches, "bc_reads": n_bc, "pool_s": pool_s}
+          f"{json.dumps(launches)} (and the prewarms' {prewarm_launches})",
+          flush=True)
+    return {"launches": launches, "prewarm_launches": prewarm_launches,
+            "bc_reads": n_bc, "pool_s": pool_s}
 
 
 class _Tee(io.TextIOBase):
@@ -1375,6 +1423,9 @@ def _run(prefix: str, **kw) -> dict:
         run_trust4(output_prefix=prefix, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if gap_oracle.STATS["prewarm_launches"]:
+        raise AssertionError(f"{prefix}: a prewarm launched inside the run; "
+                             "its launches would count as the run's")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[stage-time\] (\w+): ([0-9.]+)s", tee.buf.getvalue())}
     return {"wall_s": wall, "stages_s": stages,
@@ -1458,6 +1509,10 @@ def phase_scale(work: str, coord: str, imgt: str, n_reads: int) -> dict:
     if sum(orc["tier_launches"]) != res["launches"]:
         raise AssertionError("scale phase: the oracle's events missed "
                              "launches")
+    print(f"scale card: assemble stage {res['stages_s'].get('assemble')} s "
+          f"with the prewarm joined before the gold phase (the first batch "
+          f"waited {orc['ready_wait_s']:.6f} s for it; completion polls "
+          f"{orc['complete_wait_s']:.6f} s)", flush=True)
     # The main path's counts launches by tier: CUDA events just around
     # each kernel launch (gap_oracle.STATS), no profiler.
     print("scale card, main-path counts kernel: " + json.dumps({
@@ -1500,6 +1555,386 @@ def _profiled(work: str, kw: dict) -> dict:
     return busy
 
 
+# Modes phase sizes: what users run.  A 5' V(D)J library of a few
+# thousand cells; a bulk BAM the size of the scale corpus; one 96-well
+# SMART-seq plate.
+SC_CELLS = 5000
+BAM_PAIRS = 250_000
+BAM_BC_PAIRS = 20_000
+PLATE_CELLS = 96
+PLATE_PAIRS = 2000
+# Part (f)'s deadlines (seconds).
+DEADLINE_S = 1
+READY_DEADLINE_S = 2
+
+
+def _stage_sums(text: str) -> dict:
+    """Every [stage-time] wall (stages and sub-stages such as asm/loop),
+    summed over the runs in ``text``."""
+    out = {}
+    for m in re.finditer(r"\[stage-time\]\s+(\S+): ([0-9.]+)s", text):
+        out[m.group(1)] = out.get(m.group(1), 0.0) + float(m.group(2))
+    return out
+
+
+def _same_dirs(a: str, b: str, what: str) -> list:
+    names = sorted(os.listdir(a))
+    if not names or names != sorted(os.listdir(b)):
+        raise AssertionError(f"modes phase: {what}: files {names} vs "
+                             f"{sorted(os.listdir(b))}")
+    for n in names:
+        if not filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                           shallow=False):
+            raise AssertionError(f"modes phase: {what}: {n} differs card "
+                                 "vs TRUST4_TPU_DEVICE=0")
+    return names
+
+
+def _card_and_cpu(work: str, tag: str, fn) -> dict:
+    """fn(out_dir) on the card, launches counted from 0 around it, then
+    with TRUST4_TPU_DEVICE=0 (the native CPU DP); every file the two
+    write must be byte-identical, and the card run must launch #1 (the
+    process's prewarm was joined before: a prewarm launching inside
+    either run fails)."""
+    from trust4_tpu_torch.ops import dp_counts, gap_oracle
+
+    rec = {}
+    for mode in ("card", "cpu"):
+        d = os.path.join(work, "modes", tag, mode)
+        os.makedirs(d)
+        if mode == "cpu":
+            os.environ["TRUST4_TPU_DEVICE"] = "0"
+        gap_oracle.reset_stats()
+        tee = _Tee(sys.stderr)
+        dp_counts.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(tee):
+                fn(d)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("TRUST4_TPU_DEVICE", None)
+        orc = gap_oracle.STATS
+        if orc["prewarm_launches"]:
+            raise AssertionError(f"modes phase: {tag}: a prewarm launched "
+                                 "inside the part")
+        rec[mode] = {"wall_s": time.perf_counter() - t0,
+                     "stages_s": _stage_sums(tee.buf.getvalue()),
+                     "launches": dp_counts.LAUNCHES,
+                     "gap_fills": orc["gap_fills"],
+                     "tier_unique": list(orc["tier_unique"]),
+                     "tier_launches": list(orc["tier_launches"])}
+    if rec["card"]["launches"] == 0:
+        raise AssertionError(f"modes phase: {tag}: #1 never launched")
+    if rec["cpu"]["launches"] or rec["cpu"]["gap_fills"]:
+        raise AssertionError(f"modes phase: {tag}: TRUST4_TPU_DEVICE=0 "
+                             "ran the oracle")
+    names = _same_dirs(os.path.join(work, "modes", tag, "card"),
+                       os.path.join(work, "modes", tag, "cpu"), tag)
+    rec["files"] = len(names)
+    print(f"modes {tag}: launches {rec['card']['launches']}, "
+          f"{len(names)} files byte-identical card vs TRUST4_TPU_DEVICE=0; "
+          f"card {json.dumps(rec['card'])}; TRUST4_TPU_DEVICE=0 "
+          f"{json.dumps(rec['cpu'])}", flush=True)
+    return rec
+
+
+def _hold_golden(path: str, golden: str, what: str) -> None:
+    if not filecmp.cmp(path, golden, shallow=False):
+        raise AssertionError(f"modes phase: {what} differs from {golden}")
+
+
+# A child of part (f): run_trust4 with the arguments in argv[1] (JSON);
+# prints its launches (the run's, the cold prewarm's apart), oracle totals
+# and wall as JSON.  A missed deadline raises GapDeviceTimeout out of the
+# child, which exits non-zero.
+_DEADLINE_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+from trust4_tpu_torch.ops import dp_counts, gap_oracle
+from trust4_tpu_torch.pipeline.run import run_trust4
+gap_oracle.reset_stats()
+t0 = time.perf_counter()
+run_trust4(**json.loads(sys.argv[1]))
+torch.cuda.synchronize()
+pw = gap_oracle.STATS["prewarm_launches"]
+print(json.dumps({"wall_s": time.perf_counter() - t0,
+                  "launches": dp_counts.LAUNCHES - pw,
+                  "prewarm_launches": pw, "oracle": gap_oracle.STATS}))
+"""
+
+
+def _deadline_children(work: str, coord: str, imgt: str,
+                       scale_cpu: str) -> dict:
+    """(f): the scale corpus under TRUST4_TPU_DEVICE_TIMEOUT_S=1 in a fresh
+    process (so its prewarm starts cold), byte-identical to the scale
+    phase's TRUST4_TPU_DEVICE=0 run; and the gold reads under each hang
+    hook, which must raise GapDeviceTimeout within the deadline and exit
+    non-zero."""
+    base = os.path.join(work, "modes", "deadline")
+    hangs = {
+        "hang-ready": ("TRUST4_TPU_DEVICE_READY_TIMEOUT_S", READY_DEADLINE_S),
+        "hang-launch": ("TRUST4_TPU_DEVICE_TIMEOUT_S", DEADLINE_S),
+    }
+    procs = {}
+    for hook, (env, limit) in hangs.items():
+        gold = os.path.join(base, hook, "gold")
+        os.makedirs(os.path.dirname(gold))
+        for m in (1, 2):
+            shutil.copy(os.path.join(GOLD, f"gold_toassemble_{m}.fq"),
+                        f"{gold}_toassemble_{m}.fq")
+        gold_kw = dict(coord_fasta=coord, imgt_fasta=imgt,
+                       read1_files=[f"{gold}_toassemble_1.fq"],
+                       read2_files=[f"{gold}_toassemble_2.fq"], stage=1,
+                       output_prefix=gold, device="cuda")
+        procs[hook] = subprocess.Popen(
+            [sys.executable, "-c", _DEADLINE_CHILD, json.dumps(gold_kw)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, "TRUST4_TPU_GAP_TEST": hook,
+                            env: str(limit)})
+    rec = {}
+    for hook, proc in procs.items():
+        env, limit = hangs[hook]
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        m = re.search(r"GapDeviceTimeout: .*" + env + r"=[0-9.]+ s \(waited "
+                      r"([0-9.]+) s\)", err)
+        if proc.returncode == 0 or m is None:
+            raise AssertionError(f"modes phase: (f) {hook}: rc "
+                                 f"{proc.returncode}, stderr tail "
+                                 f"{err[-2000:]}")
+        waited = float(m.group(1))
+        if not limit <= waited <= limit + 1.0:
+            raise AssertionError(f"modes phase: (f) {hook}: waited {waited} s "
+                                 f"for a {limit} s deadline")
+        rec[hook] = {"rc": proc.returncode, "deadline_s": limit,
+                     "waited_s": waited}
+        print(f"modes (f) {hook}: the child raised GapDeviceTimeout after "
+              f"{waited:.3f} s ({env}={limit}) and exited "
+              f"{proc.returncode}", flush=True)
+
+    out_dir = os.path.join(base, "bulk")
+    os.makedirs(out_dir)
+    kw = dict(coord_fasta=coord, imgt_fasta=imgt,
+              single_files=[os.path.join(work, "bulk.fq")],
+              output_prefix=os.path.join(out_dir, "bulk"),
+              threads=os.cpu_count() or 1, device="cuda")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", _DEADLINE_CHILD, json.dumps(kw)], cwd=REPO,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "TRUST4_TPU_DEVICE_TIMEOUT_S": str(DEADLINE_S)})
+    if r.returncode != 0:
+        raise AssertionError(f"modes phase: (f) the 1 s-deadline run exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    for suf in ("_toassemble.fq",) + ARTIFACTS + ("_report.tsv",
+                                                   "_airr.tsv"):
+        _hold_golden(os.path.join(out_dir, "bulk" + suf), scale_cpu + suf,
+                     f"(f) 1 s-deadline run {suf}")
+    orc = res["oracle"]
+    if res["launches"] == 0 or res["prewarm_launches"] == 0:
+        raise AssertionError(f"modes phase: (f) launches {res['launches']}, "
+                             f"the prewarm's {res['prewarm_launches']}")
+    if sum(orc["tier_launches"]) != res["launches"]:
+        raise AssertionError("modes phase: (f) the oracle's events missed "
+                             "launches")
+    rec["deadline_run"] = {
+        "child_wall_s": time.perf_counter() - t0, "wall_s": res["wall_s"],
+        "stages_s": _stage_sums(r.stderr), "launches": res["launches"],
+        "prewarm_launches": res["prewarm_launches"],
+        "ready_wait_s": orc["ready_wait_s"],
+        "complete_wait_s": orc["complete_wait_s"]}
+    print(f"modes (f): the scale corpus under TRUST4_TPU_DEVICE_TIMEOUT_S="
+          f"{DEADLINE_S} in a fresh process completed, byte-identical to "
+          f"TRUST4_TPU_DEVICE=0; {json.dumps(rec['deadline_run'])}",
+          flush=True)
+    return rec
+
+
+def _write_whitelist(bc_fq: str, path: str, seed: int) -> int:
+    """The cells' barcodes (first 16 bases of each barcode read) and as
+    many random ones, sorted: a whitelist wider than the sample."""
+    import random
+
+    cells = set()
+    with open(bc_fq) as f:
+        for i, line in enumerate(f):
+            if i % 4 == 1:
+                cells.add(line[:16])
+    rnd = random.Random(seed)
+    extra = {"".join(rnd.choice("ACGT") for _ in range(16))
+             for _ in range(len(cells))}
+    with open(path, "w") as f:
+        f.write("".join(b + "\n" for b in sorted(cells | extra)))
+    return len(cells)
+
+
+def phase_modes(work: str, coord: str, imgt: str, coord_bam: str) -> dict:
+    """The entry points other than bulk FASTQ, each part on the card and
+    with TRUST4_TPU_DEVICE=0 (byte-identical), launches of #1 counted from
+    0 around each card run.  Returns {part: launches} and the launches
+    of part (f)'s cold prewarm."""
+    from tools.make_bench_corpus import make_barcoded_corpus
+    from trust4_tpu_torch.pipeline.assembler import Assembler
+    from trust4_tpu_torch.pipeline.extract import run_extractor
+    from trust4_tpu_torch.pipeline.run import run_trust4
+    from trust4_tpu_torch.pipeline.smartseq import run_smartseq
+    from trust4_tpu_torch.testing import (
+        write_smartseq_cell,
+        write_standin_bam,
+    )
+
+    threads = os.cpu_count() or 1
+    launches = {}
+    t_phase = time.perf_counter()
+
+    # (a) barcoded run: a 10x-style corpus of SC_CELLS cells.
+    t0 = time.perf_counter()
+    reads, bc = (os.path.join(work, "sc_reads.fq"),
+                 os.path.join(work, "sc_bc.fq"))
+    n_reads = make_barcoded_corpus(reads, bc, n_cells=SC_CELLS,
+                                   seed=20260817, ref_fa=coord_bam)
+    wl = os.path.join(work, "sc_whitelist.txt")
+    n_cells = _write_whitelist(bc, wl, 20260817)
+    print(f"modes (a): {n_reads} reads of {n_cells} cells in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    launches["barcoded"] = _card_and_cpu(work, "barcoded", lambda d: run_trust4(
+        coord_bam, imgt, single_files=[reads], barcode_files=[bc],
+        umi_files=[bc], read_format="bc:0:15,um:16:25",
+        barcode_whitelist=wl, output_prefix=os.path.join(d, "sc"),
+        threads=threads, device="cuda"))["card"]["launches"]
+
+    # (b) bulk BAM.
+    t0 = time.perf_counter()
+    bam = os.path.join(work, "bulk.bam")
+    st = write_standin_bam(bam, coord_bam, BAM_PAIRS, seed=20261017)
+    print(f"modes (b): BAM {json.dumps(st)} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    launches["bam"] = _card_and_cpu(work, "bam", lambda d: run_trust4(
+        coord_bam, imgt, bam_file=bam, output_prefix=os.path.join(d, "bam"),
+        threads=threads, device="cuda"))["card"]["launches"]
+
+    # (c) barcoded BAM: the committed bc.bam, and BAM_BC_PAIRS pairs with
+    # CB/UB tags from the writer.
+    bc_bam = os.path.join(GOLD, "bambc", "bc.bam")
+    launches["bam_barcoded"] = _card_and_cpu(
+        work, "bam_barcoded", lambda d: run_trust4(
+            coord_bam, imgt, bam_file=bc_bam,
+            output_prefix=os.path.join(d, "bb"), bam_barcode_field="CB",
+            bam_umi_field="UB", threads=threads,
+            device="cuda"))["card"]["launches"]
+    card = os.path.join(work, "modes", "bam_barcoded", "card", "bb")
+    for suf, gold in (("_toassemble_bc.fa", "gold_bc.fa"),
+                      ("_toassemble_umi.fa", "gold_umi.fa"),
+                      ("_toassemble_1.fq", "gold_1.fq"),
+                      ("_final.out", "gold_final.out"),
+                      ("_cdr3.out", "gold_cdr3.out")):
+        _hold_golden(card + suf, os.path.join(GOLD, "bambc", gold),
+                     f"(c) bc.bam {suf}")
+    print("modes (c): bc.bam on the card equals its five goldens",
+          flush=True)
+    bam20 = os.path.join(work, "bc20k.bam")
+    write_standin_bam(bam20, coord_bam, BAM_BC_PAIRS, seed=20261018,
+                      barcodes=True)
+    launches["bam_barcoded_20k"] = _card_and_cpu(
+        work, "bam_barcoded_20k", lambda d: run_trust4(
+            coord_bam, imgt, bam_file=bam20,
+            output_prefix=os.path.join(d, "bb"), bam_barcode_field="CB",
+            bam_umi_field="UB", threads=threads,
+            device="cuda"))["card"]["launches"]
+
+    # (d) SMART-seq: one plate, each cell from its own seed.
+    t0 = time.perf_counter()
+    plate = os.path.join(work, "plate")
+    os.makedirs(plate)
+    lists = [os.path.join(plate, f"list{m}.txt") for m in (1, 2)]
+    with open(lists[0], "w") as l1, open(lists[1], "w") as l2:
+        for c in range(PLATE_CELLS):
+            r1, r2 = (os.path.join(plate, f"cell{c:02d}_{m}.fq")
+                      for m in (1, 2))
+            write_smartseq_cell(r1, r2, coord_bam, PLATE_PAIRS,
+                                seed=20261100 + c)
+            l1.write(r1 + "\n")
+            l2.write(r2 + "\n")
+    print(f"modes (d): {PLATE_CELLS} cells of {PLATE_PAIRS} pairs in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    def smartseq(d):
+        tmp = d + "_tmp"
+        os.makedirs(tmp)
+        run_smartseq(coord_bam, imgt, *lists,
+                     output_prefix=os.path.join(d, "plate"), tmp_dir=tmp,
+                     device="cuda")
+
+    launches["smartseq"] = _card_and_cpu(work, "smartseq",
+                                         smartseq)["card"]["launches"]
+
+    # (e) each mode of tests/data/modes at its committed size.
+    modes = os.path.join(GOLD, "modes")
+    gold_reads = [os.path.join(GOLD, f"gold_toassemble_{m}.fq")
+                  for m in (1, 2)]
+
+    def extract_assemble(fq, **kw):
+        def fn(d):
+            run_extractor(coord, [fq], None, os.path.join(d, "m_toassemble"))
+            Assembler(coord, output_prefix=os.path.join(d, "m"),
+                      device="cuda", **kw).run(
+                [os.path.join(d, "m_toassemble.fq")])
+        return fn
+
+    def from_assembly(**kw):
+        def fn(d):
+            prefix = os.path.join(d, "m")
+            for m in (1, 2):
+                shutil.copy(gold_reads[m - 1], f"{prefix}_toassemble_{m}.fq")
+            run_trust4(coord, coord if kw.get("ref_is_imgt") is False
+                       else imgt, read1_files=[f"{prefix}_toassemble_1.fq"],
+                       read2_files=[f"{prefix}_toassemble_2.fq"],
+                       output_prefix=prefix, stage=1, device="cuda", **kw)
+        return fn
+
+    cases = {
+        "repseq": (extract_assemble(os.path.join(modes, "repseq.fq"),
+                                    trim_level=2, skip_mate_extension=True),
+                   "gold_repseq_final.out", "_final.out"),
+        "longreads": (extract_assemble(os.path.join(modes, "longreads.fq")),
+                      "gold_longread_final.out", "_final.out"),
+        "contigMinCov": (lambda d: run_trust4(
+            coord, imgt, single_files=[os.path.join(modes, "mincov_r1.fq")],
+            barcode_files=[os.path.join(modes, "mincov_bc.fq")],
+            read_format="bc:0:15", contig_min_cov=4,
+            output_prefix=os.path.join(d, "m"), device="cuda"),
+            "gold_mincov_final.out", "_final.out"),
+        "jellyfish": (lambda d: Assembler(
+            coord, output_prefix=os.path.join(d, "m"), device="cuda",
+            kmer_count_file=os.path.join(modes, "jellyfish_counts.fa"),
+        ).run(gold_reads[:1], gold_reads[1:]),
+            "jellyfish_final.out", "_final.out"),
+        "notIMGT": (from_assembly(ref_is_imgt=False), "notimgt_annot.fa",
+                    "_annot.fa"),
+        "skipReadRealign": (from_assembly(skip_read_realign=True),
+                            "skiprealign_cdr3.out", "_cdr3.out"),
+    }
+    for name, (fn, golden, ours) in cases.items():
+        launches[name] = _card_and_cpu(work, name, fn)["card"]["launches"]
+        _hold_golden(os.path.join(work, "modes", name, "card", "m" + ours),
+                     os.path.join(modes, golden), f"(e) {name}")
+    print("modes (e): every mode on the card equals its golden", flush=True)
+
+    # (f) the deadlines.
+    deadline = _deadline_children(work, coord, imgt,
+                                  os.path.join(work, "cpu", "bulk"))
+    launches["deadline"] = deadline["deadline_run"]["launches"]
+    print(f"modes: every part exact; #1 launches by part "
+          f"{json.dumps(launches)}; phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, deadline["deadline_run"]["prewarm_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1519,12 +1954,20 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         coord, imgt = write_standin_references(os.path.join(work, "ref"))
+        coord_bam = write_standin_references(os.path.join(work, "ref"),
+                                             coordinates=True)[0]
+        prewarm = {"main": _join_prewarm("cuda")}
+        print(f"prewarm: joined in the main process before its first "
+              f"counted run, {prewarm['main']} launches", flush=True)
         phase_gold(work, coord, imgt)
         scale = phase_scale(work, coord, imgt, SCALE_READS)
         realign_launches, realign_card = phase_realign(
             os.path.join(work, "card", "bulk"), coord)
         phase_prefilter(work, coord, imgt)
         ranks = phase_ranks(work, coord, imgt, realign_card)
+        mode_launches, prewarm["deadline"] = phase_modes(work, coord, imgt,
+                                                         coord_bam)
+        prewarm["ranks"] = ranks["prewarm_launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dirs_launches, dirs_tiers, dirs_mixed = phase_dirs()
@@ -1554,6 +1997,8 @@ def main() -> int:
         "bound_by": top["bound_by"],
         "library_ms": None,
         "mesh_launches": ranks["launches"]["dp_counts"],
+        "mode_launches": mode_launches,
+        "prewarm_launches": prewarm,
         "per_thread_ms": top["per_thread_ms"],
         "main_path_kernel_ms": sum(scale["oracle"]["tier_kernel_ms"]),
         "tiers": [{k: t[k] for k in ("cap", "w", "chunk", "ms",

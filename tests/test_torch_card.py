@@ -308,3 +308,67 @@ def test_gap_mesh_over_two_ranks_on_one_card(card, monkeypatch):
     for got, launches in res:
         np.testing.assert_array_equal(got, want)
         assert launches == 1
+
+
+def _card_vs_device0(tmp_path, monkeypatch, run):
+    """run(out_dir) on the card, then with TRUST4_TPU_DEVICE=0: every file
+    byte-identical, and the counts kernel launched on the card."""
+    import filecmp
+    import os
+
+    dirs = {}
+    for mode in ("card", "cpu"):
+        d = tmp_path / mode
+        d.mkdir()
+        if mode == "cpu":
+            monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+        launches = dp_counts.LAUNCHES
+        run(str(d))
+        torch.cuda.synchronize()
+        if mode == "card":
+            assert dp_counts.LAUNCHES > launches
+        dirs[mode] = str(d)
+    names = sorted(os.listdir(dirs["card"]))
+    assert names and names == sorted(os.listdir(dirs["cpu"]))
+    for n in names:
+        assert filecmp.cmp(os.path.join(dirs["card"], n),
+                           os.path.join(dirs["cpu"], n), shallow=False), n
+    return dirs
+
+
+def test_barcoded_run_card_matches_device0(card, tmp_path, monkeypatch):
+    import os
+
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.pipeline.run import run_trust4
+
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    data = os.path.join(os.path.dirname(__file__), "data")
+    coord, imgt = testing.write_standin_references(str(tmp_path / "ref"))
+    out = tmp_path / "out"
+    out.mkdir()
+    _card_vs_device0(out, monkeypatch, lambda d: run_trust4(
+        coord, imgt,
+        read1_files=[os.path.join(data, "gold_toassemble_1.fq")],
+        read2_files=[os.path.join(data, "gold_toassemble_2.fq")],
+        barcode_files=[os.path.join(data, "bc", "bc.fq")],
+        barcode_whitelist=os.path.join(data, "bc", "bc_wl.txt"),
+        output_prefix=os.path.join(d, "bc"), device="cuda"))
+
+
+def test_bam_run_card_matches_device0(card, tmp_path, monkeypatch):
+    import os
+
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.pipeline.run import run_trust4
+
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    coord, imgt = testing.write_standin_references(str(tmp_path / "ref"),
+                                                   coordinates=True)
+    bam = str(tmp_path / "bulk.bam")
+    testing.write_standin_bam(bam, coord, 3000, seed=12)
+    out = tmp_path / "out"
+    out.mkdir()
+    _card_vs_device0(out, monkeypatch, lambda d: run_trust4(
+        coord, imgt, bam_file=bam, output_prefix=os.path.join(d, "bam"),
+        device="cuda"))

@@ -8,10 +8,10 @@ stand-in coordinate FASTA, extracted by the port's barcoded extractor:
 about 5,100 reads, so the assembler's partition gate (4,096 reads) cuts
 it into whole-barcode spans.  The committed barcoded gold reads
 (tests/data/bambc, 198 reads) are below that gate and never reach an
-executor.  One world of 4 ranks runs the mesh executor at 1, 2 and 4
-ranks; every rank's ``_final.out`` must equal the port's thread pool and
-the JAX package's ``asm_mesh.mesh_partition_executor`` at the same shard
-count.
+executor.  One world of 8 ranks runs the mesh executor at 1, 2, 4 and 8
+ranks (tests/test_asm_mesh.py holds 8 shards); every rank's
+``_final.out`` must equal the port's thread pool and the JAX package's
+``asm_mesh.mesh_partition_executor`` at the same shard count.
 """
 
 import os
@@ -22,7 +22,7 @@ from trust4_tpu_torch import testing
 from trust4_tpu_torch.parallel import mesh as rank_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANKS = (1, 2, 4)
+RANKS = (1, 2, 4, 8)
 THREADS = 4
 
 
@@ -109,8 +109,9 @@ def world(corpus):
     coord, pre, root = corpus
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(rank_mesh.TIMEOUT_ENV, "60")
-        return rank_mesh.spawn(_world, 4, backend="gloo", device="cpu",
-                               args=(coord, pre, root), timeout_s=60)
+        return rank_mesh.spawn(_world, max(RANKS), backend="gloo",
+                               device="cpu", args=(coord, pre, root),
+                               timeout_s=60)
 
 
 @pytest.mark.parametrize("n", RANKS)

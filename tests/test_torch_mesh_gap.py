@@ -241,6 +241,57 @@ def test_gap_mesh_stage_equals_single_rank_and_jax(worlds, single, refs, n,
         assert res["stage"]["artifacts"] == want, f"{n} ranks, rank {r}"
 
 
+def _world8(root, refs):
+    """Rank body of the world of 8: mesh_tier_counts over all 8 ranks per
+    tier, and the pipeline stage under TRUST4_TPU_GAP_MESH=8."""
+    import torch.distributed as dist
+
+    from trust4_tpu_torch.parallel import gap_mesh
+
+    m = gap_mesh.make_mesh(8, device="cpu")
+    out = {"counts": {}}
+    for cap, w, _chunk in _TIERS:
+        _pairs, tc, pc, tl, pl = _tier_inputs(cap)
+        out["counts"][cap] = gap_mesh.mesh_tier_counts(m, tc, pc, tl, pl,
+                                                       w=w)
+    out["stage"] = _port_stage(root, refs, 8, f"w8r{dist.get_rank()}")
+    return out
+
+
+@pytest.mark.slow
+def test_eight_ranks_equal_jax(refs, single, tmp_path, monkeypatch):
+    """A world of 8 ranks (tests/test_gap_mesh.py holds 8 shards): each
+    tier's counts equal the JAX package's mesh_tier_counts at 8 shards,
+    and every rank's stage-2 rerun equals the goldens and the JAX mesh
+    pipeline at 8.  Marked slow: a world of 8 takes this module past a
+    minute on an 8-core box."""
+    from trust4_tpu.parallel import gap_mesh as jax_gap_mesh
+    from trust4_tpu.pipeline.run import run_trust4 as jax_run
+
+    monkeypatch.setenv(rank_mesh.TIMEOUT_ENV, PG_TIMEOUT_S)
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    monkeypatch.delenv("TRUST4_TPU_GAP_MESH", raising=False)
+    results = rank_mesh.spawn(_world8, 8, backend="gloo", device="cpu",
+                              args=(str(tmp_path), refs),
+                              timeout_s=2 * JOIN_TIMEOUT_S)
+    assert len(results) == 8
+    for cap, w, _chunk in _TIERS:
+        _pairs, tc, pc, tl, pl = _tier_inputs(cap)
+        want = jax_gap_mesh.mesh_tier_counts(jax_gap_mesh.make_mesh(8), tc,
+                                             pc, tl, pl, w=w)
+        for r, res in enumerate(results):
+            np.testing.assert_array_equal(res["counts"][cap], want,
+                                          err_msg=f"tier {cap}, rank {r}")
+    monkeypatch.setenv("TRUST4_TPU_GAP_MESH", "8")
+    ref = _stage_prefix(str(tmp_path), "jax")
+    jax_run(refs[0], refs[1], **_stage_kw(ref, refs))
+    assert _read(ref) == single
+    rows = [sum(res["stage"]["dp_rows"]) for res in results]
+    assert len(set(rows)) == 1 and rows[0] > 0, rows
+    for r, res in enumerate(results):
+        assert res["stage"]["artifacts"] == single, f"rank {r}"
+
+
 def _absent_peer(how):
     """Rank 1 never enters the collective (it sleeps, or it leaves the
     world and exits); rank 0's all-reduce must raise, and says how long

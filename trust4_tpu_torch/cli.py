@@ -10,8 +10,8 @@ Subcommands (reference binaries in parentheses):
 Usage: python -m trust4_tpu_torch <subcommand> [options]
 
 The gap-fill DP and the `--tpuPrefilter` extraction prefilter run on the
-CUDA card unless `--device cpu` (on `run` and `extract`) asks for their
-plain PyTorch versions.
+CUDA card unless `--device cpu` (on `run`, `extract`, `assemble`,
+`annotate` and `smartseq`) asks for their plain PyTorch versions.
 
 Under torchrun (WORLD_SIZE > 1), `run` joins the ranks' default process
 group (NCCL when each rank has a card of its own, gloo on the CPU or
@@ -313,6 +313,8 @@ def cmd_assemble(argv) -> int:
     p.add_argument("--contigMinCov", type=int, default=0)
     p.add_argument("--cgeneEnd", type=int, default=200)
     p.add_argument("--keepNoBarcode", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the gap-fill DP (default cuda)")
     args = p.parse_args(argv)
     args.read1 = _flatfiles(args.read1)
     args.read2 = _flatfiles(args.read2)
@@ -333,6 +335,7 @@ def cmd_assemble(argv) -> int:
         contig_min_cov=args.contigMinCov,
         keep_missing_barcode=args.keepNoBarcode,
         kmer_count_file=args.kmerCountFile,
+        device=args.device,
     )
     asm.run(
         args.read1 or args.single,
@@ -362,6 +365,8 @@ def cmd_annotate(argv) -> int:
     p.add_argument("--readAssignment", default=None)
     p.add_argument("--imgtAdditionalGap", default=None)
     p.add_argument("-t", dest="threads", type=int, default=1)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the gap-fill DP (default cuda)")
     args = p.parse_args(argv)
 
     from trust4_tpu_torch.pipeline.annotator import Annotator
@@ -375,6 +380,7 @@ def cmd_annotate(argv) -> int:
         has_barcode=args.barcode,
         has_umi=args.UMI,
         threads=args.threads,
+        device=args.device,
     )
     if args.fasta:
         ann.load_fasta(args.assembly)
@@ -467,6 +473,8 @@ def cmd_smartseq(argv) -> int:
     p.add_argument("-o", dest="prefix", default="TRUST")
     p.add_argument("-t", dest="threads", type=int, default=1)
     p.add_argument("--representative", type=int, default=1)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the gap-fill DP (default cuda)")
     args = p.parse_args(argv)
     from trust4_tpu_torch.pipeline.smartseq import run_smartseq
 
@@ -477,6 +485,7 @@ def cmd_smartseq(argv) -> int:
         args.read2_list,
         args.prefix,
         args.representative,
+        device=args.device,
     )
     return 0
 

@@ -34,7 +34,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from trust4_tpu_torch.ops.gap_oracle import _TIERS, _job_segments, tier_of_jobs
+from trust4_tpu_torch.ops.gap_oracle import (
+    _TIERS,
+    _job_segments,
+    tier_of_jobs,
+    wait_ready,
+)
 from trust4_tpu_torch.parallel import mesh as _mesh
 
 
@@ -118,6 +123,9 @@ def gap_counts_via_mesh(mesh, nat, query_jobs, gap_jobs: np.ndarray, seqs,
         return np.zeros((0, 3), dtype=np.int32)
     if n_threads <= 0:
         n_threads = os.cpu_count() or 1
+    # This rank's prewarm (pipeline/run.py started it), joined as the
+    # single-card oracle joins it: bounded, its error raised here.
+    wait_ready(mesh.device)
 
     t_lens = gap_jobs[:, 5]
     r_lens = gap_jobs[:, 7]

@@ -177,23 +177,16 @@ def run_trust4(
         asm_reads = [prefix + "_toassemble.fq"]
         asm_mates = None
 
-    # Build and load the kernel library before the CPU stages, so a
-    # missing card or a failed build stops the run up front instead of
-    # after the assembly.
-    if stage <= 2 and device != "cpu":
+    # Start the device work (CUDA context, the counts kernel's build and
+    # load, a round trip per tier) on a thread while the CPU stages run,
+    # as the JAX package starts its device child here; the first gap
+    # batch joins it, bounded (ops/gap_oracle.py).  A missing card stops
+    # the run here, before the assembly.
+    if stage <= 2:
         from trust4_tpu_torch.ops import gap_oracle
 
         if gap_oracle.enabled():
-            import torch
-
-            from trust4_tpu_torch.ops.build import load
-
-            load("dp_counts")
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device={device!r} but torch.cuda.is_available() is "
-                    "False; pass device='cpu' to run the plain PyTorch DP"
-                )
+            gap_oracle.prewarm(device)
 
     # Stage 1: assembly (run-trust4:506-508).
     if stage <= 1:

@@ -35,7 +35,11 @@ def run_smartseq(
     output_prefix: str = "TRUST",
     representative_n: int = 1,
     tmp_dir: str = ".",
+    device: str = "cuda",
 ) -> None:
+    """``device`` is each cell's ``run_trust4`` device: "cuda" (the
+    default) runs the gap-fill DP on the card, "cpu" its plain PyTorch
+    version."""
     from trust4_tpu_torch.pipeline.run import run_trust4
 
     files1 = [l.strip() for l in open(read1_list) if l.strip()]
@@ -62,11 +66,13 @@ def run_smartseq(
                 coord_fasta, imgt_fasta,
                 read1_files=[file1], read2_files=[file2],
                 output_prefix=tmp_prefix, skip_mate_extension=True,
+                device=device,
             )
         else:
             run_trust4(
                 coord_fasta, imgt_fasta,
                 single_files=[file1], output_prefix=tmp_prefix,
+                device=device,
             )
 
         with open(tmp_prefix + "_report.tsv") as fp:

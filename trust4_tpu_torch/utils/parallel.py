@@ -5,18 +5,64 @@ The reference splits its read/contig sweeps over pthreads in static blocks
 independent (the shared SeqSet is read-only during these phases), so the
 parallel results are identical to the serial pass.  Fork workers inherit
 the index/profile state copy-on-write — no pickling of the SeqSet.
+
+The pools fork under ``FORK_LOCK``, which the gap oracle's prewarm thread
+(ops/gap_oracle.py) holds while it creates the CUDA context, builds and
+launches: a worker forked then could inherit a lock of CUDA or of the
+allocator taken by that thread, and hang.  So a fork waits for a running
+prewarm, and a prewarm waits for a running pool.  A pool waits no longer
+than the prewarm's own deadline, TRUST4_TPU_DEVICE_READY_TIMEOUT_S
+(default 300): a prewarm wedged in CUDA raises the gap oracle's
+``GapDeviceTimeout`` out of the fork site instead of hanging it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
+import threading
+import time
 from typing import Callable, List, Sequence, TypeVar
 
 T = TypeVar("T")
 R = TypeVar("R")
 
 _work_fn = None
+
+FORK_LOCK = threading.Lock()
+
+
+def _fresh_fork_lock() -> None:
+    # A worker is forked while its parent holds the lock; the worker's
+    # copy is held by no thread of its own.
+    global FORK_LOCK
+    FORK_LOCK = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_fresh_fork_lock)
+
+
+@contextlib.contextmanager
+def _fork_lock():
+    """FORK_LOCK, waited for until the readiness deadline."""
+    from trust4_tpu_torch.ops.gap_oracle import (
+        READY_TIMEOUT_ENV,
+        GapDeviceTimeout,
+    )
+
+    lock = FORK_LOCK
+    limit = float(os.environ.get(READY_TIMEOUT_ENV, "300"))
+    t0 = time.monotonic()
+    if not lock.acquire(timeout=limit):
+        raise GapDeviceTimeout(
+            f"fork pool: the gap DP prewarm held the fork lock past "
+            f"{READY_TIMEOUT_ENV}={limit:g} s (waited "
+            f"{time.monotonic() - t0:.3f} s)")
+    try:
+        yield
+    finally:
+        lock.release()
 
 
 def internal_threads(threads: int) -> int:
@@ -51,7 +97,7 @@ def map_fork(fn: Callable[[T], R], items: Sequence[T], threads: int) -> List[R]:
     _work_fn = fn
     ctx = mp.get_context("fork")
     chunk = max(1, len(items) // (threads * 4))
-    with ctx.Pool(threads) as pool:
+    with _fork_lock(), ctx.Pool(threads) as pool:
         try:
             return pool.map(_invoke, items, chunksize=chunk)
         finally:
@@ -71,7 +117,7 @@ def map_fork_chunks(
     global _work_fn
     _work_fn = fn
     ctx = mp.get_context("fork")
-    with ctx.Pool(len(chunks)) as pool:
+    with _fork_lock(), ctx.Pool(len(chunks)) as pool:
         try:
             results = pool.map(_invoke, chunks)
         finally:
