@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 It drives the port only (never jax, never trust4_tpu):
 
 1. prints the card (nvidia-smi name and power limit) and builds every
-   kernel from csrc/ with nvcc (one process per source, all at once);
+   kernel from csrc/ with nvcc (one process per source, all at once,
+   while the native libraries build beside them);
 2. kernel phase: the gap-fill counts kernel, every (W, L) instance the
    library is built for (L lanes per job), at each tier's full chunk, a
    partial and a small batch per tier and a ragged batch of 33 jobs:
@@ -66,8 +67,13 @@ It drives the port only (never jax, never trust4_tpu):
    the kernel, the plain version and the decoder beside the bound;
 10. lab phase: ``trust4_tpu_torch.tools.dp_kernel_lab`` at the bench shape
    (modes base, inter2, inter4, abl, then abl per DP_ABLATE flag;
-   launches counted from 0 around it); each lab kernel bit-equal to its
-   plain version, the no-flag kernels also to the scores kernel;
+   launches counted from 0 around it); then every built instance of the
+   lab's two kernels (the ablation kernel at each (L, flag), the
+   interleaved kernel at each (L, G)) bit-equal to its plain version, the
+   no-flag ablation also to the scores kernel at each L, each timed (the
+   launch alone) beside its registers and spills, one line each; then
+   the split table: at each L, each flag's saving against no flag and
+   the interleaved kernel against no flag;
 11. microbench phase: ``trust4_tpu_torch.tools.vpu_microbench`` (every
    body and size; launches counted from 0 around it); each body's output
    equal to the plain body's, with ms per launch, ns/op and the body's
@@ -163,21 +169,26 @@ def card_line() -> str:
 
 
 def phase_build() -> dict:
-    """nvcc for the kernels, then g++ for the native libraries, so no
-    later phase times a build.  Returns the SASS counts (_sass_counts) of
-    every kernel instance, with the registers and spills ptxas reported
-    for it."""
+    """nvcc for the kernels and, side by side with it, g++ for the native
+    libraries, so no later phase times a build.  Returns the SASS counts
+    (_sass_counts) of every kernel instance, with the registers and
+    spills ptxas reported for it."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from trust4_tpu_torch.ops import build
     from trust4_tpu_torch.utils.nativebuild import ensure_built
 
     t0 = time.perf_counter()
-    build.build_all()
-    t1 = time.perf_counter()
-    for lib in ("libt4align.so", "libt4extract.so", "libt4overlap.so",
-                "libt4bam.so"):
-        ensure_built(lib)
-    print(f"build: nvcc {t1 - t0:.2f}s {json.dumps(build.BUILD_SECONDS)}, "
-          f"native {time.perf_counter() - t1:.2f}s", flush=True)
+    with ThreadPoolExecutor(1) as pool:
+        nvcc = pool.submit(build.build_all)
+        for lib in ("libt4align.so", "libt4extract.so", "libt4overlap.so",
+                    "libt4bam.so"):
+            ensure_built(lib)
+        t_native = time.perf_counter() - t0
+        nvcc.result()
+    print(f"build: nvcc {max(build.BUILD_SECONDS.values(), default=0):.2f}s "
+          f"{json.dumps(build.BUILD_SECONDS)}, native {t_native:.2f}s (side "
+          f"by side), phase {time.perf_counter() - t0:.2f}s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "error" in line:
@@ -230,16 +241,17 @@ def _ptxas_usage(log: str) -> dict:
 def _sass_counts(lib: str) -> dict:
     """SASS instructions (cuobjdump) of each kernel instance in a built
     library, keyed by the kernel's name and full template arguments
-    ("dp_inter_kernel<32,2>"): ``total`` in the function; ``loop`` inside
-    its widest backward branch (its row loop), where it has one; and for
-    the DP kernels ``per_tile_cell`` = loop / the tile cells a thread
-    sweeps per row: W x jobs per thread, or W / L for the group kernels
-    (dp_counts_kernel<W,L>, dp_scores_kernel<W,L>), W being the first
-    template argument.  The DP kernels sweep all their tile cells of a
-    row, so that is what they issue per tile cell, beside the operations
-    the function needs per band cell (OPS_PER_CELL, SCORE_OPS_PER_CELL,
-    DIRS_OPS_PER_CELL).  The microbenchmark bodies are unrolled in full,
-    so their ``total`` holds the K operations."""
+    ("dp_inter_kernel<32,4,2>"): ``total`` in the function; ``loop``
+    inside its widest backward branch (its row loop), where it has one;
+    and for the DP kernels ``per_tile_cell`` = loop / the tile cells a
+    thread sweeps per row: W for the one-thread kernels, W / L x its jobs
+    for the group kernels (_GROUP_KERNELS: <W, L>, <W, L, FLAGS>, and <W,
+    L, G> with G jobs a lane), W being the first template argument.  The
+    DP kernels sweep all their tile cells of a row, so that is what they
+    issue per tile cell, beside the operations the function needs per
+    band cell (OPS_PER_CELL, SCORE_OPS_PER_CELL, DIRS_OPS_PER_CELL).  The
+    microbenchmark bodies are unrolled in full, so their ``total`` holds
+    the K operations."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         raise RuntimeError("cuobjdump not found")
@@ -262,28 +274,30 @@ def _sass_counts(lib: str) -> dict:
             lo, hi = max(loops, key=lambda x: x[1] - x[0])
             rec["loop"] = sum(lo <= a <= hi for a, _ in ins)
             if name.startswith("dp_"):
-                cells = (args[0] * args[1] if name == "dp_inter_kernel" else
-                         args[0] // args[1] if name in _GROUP_KERNELS else
-                         args[0])
+                jobs = args[2] if name == "dp_inter_kernel" else 1
+                cells = (args[0] // args[1] * jobs if name in _GROUP_KERNELS
+                         else args[0])
                 rec["per_tile_cell"] = round(rec["loop"] / cells, 2)
             if name in _GROUP_KERNELS:
                 # One row loop per tile width the kernel can narrow to
                 # (dp_lanes.cuh narrow_width), the wider the longer.
                 rec["per_tile_cell_by_width"] = _row_loops(
-                    ins, loops, args[0], args[1])
+                    ins, loops, args[0], args[1], jobs)
         out[key] = rec
     return dict(sorted(out.items()))
 
 
-# The group kernels: template arguments <W, L>, W / L cells per lane.
-_GROUP_KERNELS = ("dp_counts_kernel", "dp_scores_kernel")
+# The group kernels: template arguments <W, L, ...>, W / L cells per
+# lane and job (dp_inter_kernel<W, L, G>: G jobs a lane).
+_GROUP_KERNELS = ("dp_counts_kernel", "dp_scores_kernel", "dp_abl_kernel",
+                  "dp_inter_kernel")
 
 
-def _row_loops(ins, loops, w: int, lanes: int) -> dict:
+def _row_loops(ins, loops, w: int, lanes: int, jobs: int = 1) -> dict:
     """SASS per tile cell of each row loop of a group kernel, by the tile
     width its path sweeps: the outermost loops of 40 instructions or more,
     longest first, matched to the widths narrow_width can pick, widest
-    first."""
+    first; a lane sweeps width / lanes cells of each of its jobs."""
     spans = []
     for lo, hi in sorted(loops, key=lambda x: x[0] - x[1]):
         if not any(a <= lo and hi <= b for a, b in spans):
@@ -291,7 +305,7 @@ def _row_loops(ins, loops, w: int, lanes: int) -> dict:
     sizes = sorted((sum(lo <= a <= hi for a, _ in ins) for lo, hi in spans),
                    reverse=True)
     widths = [w] + [x for x in (32, 24, 16) if x < w and x % lanes == 0]
-    return {str(x): round(n / (x // lanes), 2)
+    return {str(x): round(n / (x // lanes * jobs), 2)
             for x, n in zip(widths, [n for n in sizes if n >= 40])}
 
 
@@ -802,89 +816,171 @@ def phase_dirs():
     return launches, records, mixed
 
 
-def phase_lab(scores_bench: dict):
-    """The kernel lab tool at the bench shape, as a user runs it (modes
-    base, inter2, inter4, abl; then abl once per DP_ABLATE flag), launches
-    counted from 0 around it; then each lab kernel against its plain
-    version on the same inputs, the no-flag kernels also against the
-    scores kernel's output.  Returns {row name: record}."""
+def phase_lab(scores_bench: dict, sass: dict):
+    """The kernel lab at the bench shape.  First the tool as a user runs
+    it (modes base, inter2, inter4, abl at each wrapper's default L; then
+    abl once per DP_ABLATE flag), launches counted from 0 around it.  Then
+    every built instance of its two kernels, each (L, flag) of the
+    ablation kernel and each (L, G) of the interleaved one, on the same
+    inputs in the scores wrapper's order: bit-equal to its plain version,
+    the ablation kernel with no flag also to the scores kernel (the
+    wrapper, and its launch at the same L); timed, the launch alone
+    (median of N_TIMED CUDA-event launches, and back to back), beside its
+    registers and spills; one line each.  Last the split table: at each L,
+    what each flag's removal saves against no flag, and the interleaved
+    kernel against no flag.  Returns {row name: record}."""
     from trust4_tpu_torch.ops import dp_scores
     from trust4_tpu_torch.ops.dp import banded_affine_scores_plain
-    from trust4_tpu_torch.ops.dp_counts import to_device_jobs
+    from trust4_tpu_torch.ops.dp_counts import job_order, to_device_jobs
     from trust4_tpu_torch.tools import dp_kernel_lab as lab
 
-    lab.INTER_LAUNCHES = {g: 0 for g in lab.GROUPS}
-    lab.ABL_LAUNCHES = 0
+    for key in lab.LAUNCHES:
+        lab.LAUNCHES[key] = 0
     timed = lab.run_modes(["base", "inter2", "inter4", "abl"], "cuda")
     for flag in lab.ABL_FLAGS:
         timed.update(lab.run_modes(["abl"], "cuda", ablate=frozenset([flag])))
     torch.cuda.synchronize()
-    launches = {"inter2": lab.INTER_LAUNCHES[2],
-                "inter4": lab.INTER_LAUNCHES[4], "abl": lab.ABL_LAUNCHES}
-    if min(launches.values()) == 0:
+    launches = {kind: {ln: lab.LAUNCHES[(kind, ln)] for ln in lab.LANES
+                       if lab.LAUNCHES[(kind, ln)]} for kind in lab.KINDS}
+    if not all(launches.values()):
         raise AssertionError(f"lab phase: a kernel never launched {launches}")
 
     w = lab.LAB_BAND
     tc, tl, pc, pl, _ = lab.make_inputs()
     args = to_device_jobs(tc, tl, pc, pl, torch.device("cuda"))
+    order = job_order(args[1], args[3])
     want = banded_affine_scores_plain(*args, w)
     base = dp_scores.banded_affine_scores(*args, w)
     if not torch.equal(base, want):
         raise AssertionError("lab: the scores kernel differs from plain")
-    plain_ms = _median_ms(lambda: banded_affine_scores_plain(*args, w),
-                          N_TIMED)
+    flag_name = {0: "none", **{v: k for k, v in lab.ABL_FLAGS.items()}}
+    built = {"abl": lab.instances("abl"), "inter": lab.instances("inter")}
+    if built != {"abl": [(ln, f) for ln in lab.LANES for f in flag_name],
+                 "inter": [(ln, g) for ln in lab.LANES for g in lab.GROUPS]}:
+        raise AssertionError(f"lab: built instances {built}")
+    refs = {f: lab.banded_affine_scores_ablated(
+        *args, w, frozenset([] if f == 0 else [flag_name[f]]))
+        for f in flag_name}
+    insts, calls = [], []
+    for kind, pairs in built.items():
+        for lanes, arg in pairs:
+            def call(kind=kind, arg=arg, lanes=lanes):
+                return lab.launch(kind, arg, *args, w, lanes, order)
+            got = call()
+            ref = refs[arg] if kind == "abl" else want
+            torch.cuda.synchronize()
+            label = (f"abl {flag_name[arg]}" if kind == "abl" else
+                     f"inter{arg}") + f" L={lanes}"
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"lab {label}: differs from its plain version in "
+                    f"{int((got != ref).sum())} pairs")
+            if kind == "abl" and arg == 0 and not (
+                    torch.equal(got, base) and torch.equal(
+                        got, dp_scores.launch(*args, w, lanes, order))):
+                raise AssertionError(f"lab {label}: differs from the scores "
+                                     "kernel")
+            key = (f"dp_abl_kernel<{w},{lanes},{arg}>" if kind == "abl" else
+                   f"dp_inter_kernel<{w},{lanes},{arg}>")
+            rec = {"kernel": kind, "lanes": lanes, "instance": key,
+                   ("flag" if kind == "abl" else "groups"):
+                   flag_name[arg] if kind == "abl" else arg,
+                   "max_abs_err": int((got.long() - ref.long()).abs().max()),
+                   "wrong_pairs": int((ref != want).sum())}
+            rec.update({k: sass[key].get(k) for k in (
+                "total", "loop", "per_tile_cell", "per_tile_cell_by_width",
+                "registers", "spill_stores", "spill_loads")})
+            rec["ms"] = _median_ms(call, N_TIMED)
+            insts.append(rec)
+            calls.append(call)
+    scores_calls = [lambda ln=ln: dp_scores.launch(*args, w, ln, order)
+                    for ln in lab.LANES]
+    dev_ms = _device_ms(calls + scores_calls, N_TIMED)
+    for rec, ms in zip(insts, dev_ms):
+        rec["device_ms"] = ms
+        print(f"lab instance {json.dumps(rec)}", flush=True)
+    scores_dev = dict(zip(lab.LANES, dev_ms[len(insts):]))
+    scores_ms = {ln: _median_ms(call, N_TIMED)
+                 for ln, call in zip(lab.LANES, scores_calls)}
+
+    # The split: device ms back to back at each L; a flag's saving is the
+    # no-flag instance's time less its own, as a share of the no-flag time.
+    def find(kind, lanes, what):
+        return next(r for r in insts if r["kernel"] == kind and
+                    r["lanes"] == lanes and
+                    r["flag" if kind == "abl" else "groups"] == what)
+
+    split = {}
+    print("lab split (device ms back to back; in brackets the saving "
+          "against abl none at the same L):", flush=True)
+    for ln in lab.LANES:
+        none = find("abl", ln, "none")["device_ms"]
+        row = {"scores_kernel": scores_dev[ln], "none": none}
+        cells = [f"scores kernel {scores_dev[ln]:.4f}", f"none {none:.4f}"]
+        for f in lab.ABL_FLAGS:
+            ms = find("abl", ln, f)["device_ms"]
+            row[f] = ms
+            cells.append(f"{f} {ms:.4f} [{(none - ms) / none:+.1%}]")
+        for g in lab.GROUPS:
+            ms = find("inter", ln, g)["device_ms"]
+            row[f"inter{g}"] = ms
+            cells.append(f"inter{g} {ms:.4f} [{(none - ms) / none:+.1%}]")
+        split[ln] = row
+        print(f"  L={ln:<2}  " + "  ".join(cells), flush=True)
+        same = {k: (sass[f"dp_abl_kernel<{w},{ln},0>"].get(k),
+                    sass[f"dp_scores_kernel<{w},{ln}>"].get(k))
+                for k in ("total", "loop", "per_tile_cell_by_width",
+                          "registers", "spill_stores")}
+        print(f"        sass abl none vs scores kernel: {json.dumps(same)}",
+              flush=True)
+
     common = {k: scores_bench[k] for k in ("n", "t_max", "p_max", "w",
                                             "cells", "bytes", "bound_ms",
                                             "bound_by")}
+    plain_ms = _median_ms(lambda: banded_affine_scores_plain(*args, w),
+                          N_TIMED)
+    abl_plain_ms = _median_ms(
+        lambda: lab.banded_affine_scores_ablated(*args, w), N_TIMED)
     out = {}
+    # The kernels line's rows: each kernel at the wrapper's default L.
+    abl_lanes = dp_scores.lanes_for(len(tl), w)
     for g in lab.GROUPS:
-        got = lab.scores_inter(*args, w, g)
-        if not torch.equal(got, want):
-            raise AssertionError(f"lab inter{g}: differs from the plain "
-                                 "version")
-        rec = dict(common, ms=timed[f"inter{g}"]["ms"], plain_ms=plain_ms,
-                   max_abs_err=int((got - want).abs().max()),
-                   launches=launches[f"inter{g}"])
-        out[f"inter{g}"] = rec
-    flags = {}
-    for flag in [None, *lab.ABL_FLAGS]:
-        ablate = frozenset([flag] if flag else [])
-        got = lab.scores_abl(*args, w, ablate)
-        ref = lab.banded_affine_scores_ablated(*args, w, ablate)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"lab abl {flag}: differs from the plain "
-                                 "ablated version")
-        if flag is None and not torch.equal(got, base):
-            raise AssertionError("lab abl: differs from the scores kernel")
-        label = f"abl {flag or '(no flag)'}"
-        flags[flag or "none"] = {
-            "ms": timed[label]["ms"],
-            "wrong_pairs": int((ref != want).sum()),
-            "max_abs_err": int((got.long() - ref.long()).abs().max())}
-    # Back-to-back device times: inter2, inter4, abl per flag, then the
-    # scores kernel.
-    dev_ms = _device_ms(
-        [lambda g=g: lab.scores_inter(*args, w, g) for g in lab.GROUPS]
-        + [lambda f=f: lab.scores_abl(*args, w, frozenset([f] if f else []))
-           for f in [None, *lab.ABL_FLAGS]]
-        + [lambda: dp_scores.banded_affine_scores(*args, w)], N_TIMED)
-    for g, ms in zip(lab.GROUPS, dev_ms):
-        out[f"inter{g}"]["device_ms"] = ms
-    for f, ms in zip(flags, dev_ms[len(lab.GROUPS):-1]):
-        flags[f]["device_ms"] = ms
-    out["abl"] = dict(common, ms=flags["none"]["ms"],
-                      device_ms=flags["none"]["device_ms"],
-                      scores_kernel_device_ms=dev_ms[-1],
-                      plain_ms=_median_ms(
-                          lambda: lab.banded_affine_scores_ablated(*args, w),
-                          N_TIMED),
-                      max_abs_err=max(f["max_abs_err"] for f in flags.values()),
-                      launches=launches["abl"], flags=flags)
+        r = find("inter", lab.INTER_LANES, g)
+        out[f"inter{g}"] = dict(
+            common, lanes=lab.INTER_LANES, instance=r["instance"],
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=plain_ms,
+            wrapper_ms=timed[f"inter{g}"]["ms"],
+            max_abs_err=max(i["max_abs_err"] for i in insts
+                            if i["kernel"] == "inter" and i["groups"] == g),
+            launches=sum(launches[f"inter{g}"].values()),
+            launches_by_lanes=launches[f"inter{g}"],
+            instances=[{k: i[k] for k in ("lanes", "ms", "device_ms",
+                                          "registers", "spill_stores",
+                                          "spill_loads")}
+                       for i in insts if i["kernel"] == "inter"
+                       and i["groups"] == g])
+    r = find("abl", abl_lanes, "none")
+    out["abl"] = dict(
+        common, lanes=abl_lanes, instance=r["instance"], ms=r["ms"],
+        device_ms=r["device_ms"], plain_ms=abl_plain_ms,
+        wrapper_ms=timed["abl (no flag)"]["ms"],
+        scores_kernel_ms=scores_ms[abl_lanes],
+        scores_kernel_device_ms=scores_dev[abl_lanes],
+        max_abs_err=max(i["max_abs_err"] for i in insts
+                        if i["kernel"] == "abl"),
+        launches=sum(launches["abl"].values()),
+        launches_by_lanes=launches["abl"], split=split,
+        instances=[{k: i[k] for k in ("lanes", "flag", "ms", "device_ms",
+                                      "registers", "spill_stores",
+                                      "spill_loads")}
+                   for i in insts if i["kernel"] == "abl"])
     for rec in out.values():
         rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
         rec["cells_per_s"] = rec["cells"] / (rec["ms"] * 1e-3)
-    print(f"lab: bit-equal to the plain versions {json.dumps(out)}",
-          flush=True)
+    rows = {k: {x: v for x, v in r.items() if x not in ("instances", "split")}
+            for k, r in out.items()}
+    print(f"lab: every instance bit-equal to its plain version "
+          f"{json.dumps(rows)}", flush=True)
     return out
 
 
@@ -1971,7 +2067,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dirs_launches, dirs_tiers, dirs_mixed = phase_dirs()
-    lab = phase_lab(shapes[1])
+    lab = phase_lab(shapes[1], sass)
     mb_launches, mb_cases = phase_microbench(sass)
 
     # The kernel line reports the counts kernel's largest tier (the main
@@ -2063,8 +2159,11 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "device_ms": r["device_ms"],
-            **({"flags": {f: v["device_ms"] for f, v in r["flags"].items()}}
-               if name == "abl" else {}),
+            "instance": r["instance"],
+            "lanes": r["lanes"],
+            "wrapper_ms": r["wrapper_ms"],
+            "launches_by_lanes": r["launches_by_lanes"],
+            "instances": r["instances"],
         })
     mb = next(c for c in mb_cases if (c["body"], c["w"], c["lanes"])
               == ("chain_max", 32, 128))

@@ -251,6 +251,10 @@ def test_dirs_kernel_matches_plain_and_counts(card, cap, w):
 
 
 def test_lab_kernels_match_plain(card):
+    """Every built instance of the lab's kernels, each (L, flag) of the
+    ablation kernel and each (L, G) of the interleaved one, against its
+    plain version, through the wrappers (the scores wrapper's job order)
+    and in a random order; an L or a flag set not built raises."""
     from trust4_tpu_torch.tools import dp_kernel_lab as lab
 
     rng = np.random.default_rng(901)
@@ -260,16 +264,37 @@ def test_lab_kernels_match_plain(card):
     tl = rng.integers(0, t_max + 1, n).astype(np.int32)
     pl = np.clip(tl + rng.integers(-32, 32, n), 0, p_max).astype(np.int32)
     args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    perm = torch.from_numpy(rng.permutation(n)).to(card)
+    flag_name = {0: None, **{v: k for k, v in lab.ABL_FLAGS.items()}}
+    assert lab.instances("abl") == [
+        (ln, f) for ln in lab.LANES for f in flag_name]
+    assert lab.instances("inter") == [
+        (ln, g) for ln in lab.LANES for g in lab.GROUPS]
     want = banded_affine_scores_plain(*args, 32)
-    for g in lab.GROUPS:
-        assert torch.equal(lab.scores_inter(*args, 32, g), want), g
-    for flag in [None, *lab.ABL_FLAGS]:
-        ablate = frozenset([flag] if flag else [])
-        got = lab.scores_abl(*args, 32, ablate)
-        assert torch.equal(
-            got, lab.banded_affine_scores_ablated(*args, 32, ablate)), flag
+    for lanes, g in lab.instances("inter"):
+        assert torch.equal(lab.scores_inter(*args, 32, g, lanes), want), \
+            (lanes, g)
+        assert torch.equal(lab.launch("inter", g, *args, 32, lanes, perm),
+                           want), (lanes, g)
+    for flags, name in flag_name.items():
+        ablate = frozenset([name] if name else [])
+        ref = lab.banded_affine_scores_ablated(*args, 32, ablate)
+        for lanes in lab.LANES:
+            got = lab.scores_abl(*args, 32, ablate, lanes)
+            assert torch.equal(got, ref), (name, lanes)
+            assert torch.equal(
+                lab.launch("abl", flags, *args, 32, lanes, perm), ref), \
+                (name, lanes)
+            if name is None:
+                assert torch.equal(got, dp_scores.launch(
+                    *args, 32, lanes, dp_counts.job_order(args[1], args[3])))
     with pytest.raises(ValueError, match="one flag"):
         lab.scores_abl(*args, 32, {"nosub", "noscan"})
+    for bad in (2, 32):
+        with pytest.raises(ValueError, match="built for L"):
+            lab.scores_inter(*args, 32, 2, bad)
+        with pytest.raises(ValueError, match="built for L"):
+            lab.scores_abl(*args, 32, lanes=bad)
 
 
 def test_microbench_bodies_match_plain(card):

@@ -152,11 +152,34 @@ def test_parse_ablate_and_wrapper_checks():
     tc, tl, pc, pl = _band_pairs(3, n=8)
     with pytest.raises(ValueError, match="groups"):
         lab.scores_inter(*_t(tc, tl, pc, pl), 32, 3)
-    launches = (dict(lab.INTER_LAUNCHES), lab.ABL_LAUNCHES)
+    launches = dict(lab.LAUNCHES)
     lab.scores_abl(*_t(tc, tl, pc, pl), 32, {"nosub", "noscan"})
-    assert (dict(lab.INTER_LAUNCHES), lab.ABL_LAUNCHES) == launches
+    assert lab.LAUNCHES == launches
     with pytest.raises(ValueError, match="unsupported device"):
         lab.scores_abl(*[a.to("meta") for a in _t(tc, tl, pc, pl)], 32)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4, 8, 16])
+def test_lanes_run_the_plain_version_on_the_cpu(lanes):
+    """Every built L, and None (each wrapper's default), runs the plain
+    version on a CPU tensor and counts no launch; an L the kernels are
+    not built for raises ValueError on the CPU as on the card."""
+    tc, tl, pc, pl = _band_pairs(5, n=16)
+    args = _t(tc, tl, pc, pl)
+    launches = dict(lab.LAUNCHES)
+    want = banded_affine_scores_plain(*args, 32)
+    for g in lab.GROUPS:
+        assert torch.equal(lab.scores_inter(*args, 32, g, lanes=lanes), want)
+    assert torch.equal(lab.scores_abl(*args, 32, lanes=lanes), want)
+    assert torch.equal(
+        lab.scores_abl(*args, 32, {"noscan"}, lanes=lanes),
+        lab.banded_affine_scores_ablated(*args, 32, {"noscan"}))
+    assert lab.LAUNCHES == launches
+    for bad in (0, 2, 3, 32):
+        with pytest.raises(ValueError, match="built for L"):
+            lab.scores_inter(*args, 32, 2, lanes=bad)
+        with pytest.raises(ValueError, match="built for L"):
+            lab.scores_abl(*args, 32, lanes=bad)
 
 
 def test_prep_modes_match_jax(jax_lab):

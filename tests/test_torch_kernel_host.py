@@ -1,13 +1,13 @@
 """The CUDA kernels' arithmetic, run on the CPU.
 
-csrc/dp_counts.cuh, csrc/dp_scores.cuh, csrc/dp_dirs.cuh and
-csrc/dp_lab.cuh hold the per-job DP of the counts, scores, dirs and lab
-kernels as ``__host__ __device__`` code with no CUDA headers.  g++ builds
-them here, with both qualifiers defined empty, into a small host library;
-each per-job function must equal its plain PyTorch version (and so the
-JAX package) bit for bit: the counts in both epilogues, the whole dirs
-tensor, the interleaved jobs (G = 2, 4) and every ablation flag.  This is
-the only place the kernels' own arithmetic runs without a card.
+csrc/dp_counts.cuh, csrc/dp_scores.cuh and csrc/dp_dirs.cuh hold the
+per-job DP of the counts, scores and dirs kernels as ``__host__
+__device__`` code with no CUDA headers.  g++ builds them here, with both
+qualifiers defined empty, into a small host library; each per-job
+function must equal its plain PyTorch version (and so the JAX package)
+bit for bit: the counts in both epilogues and the whole dirs tensor.
+The group sweeps built on these headers run in tests/test_torch_dp_group.py
+(kernels #1, #3) and tests/test_torch_dp_lab_group.py (the lab's kernels).
 """
 
 import ctypes
@@ -30,7 +30,6 @@ _SHIM = r"""
 #include <cstddef>
 #include "dp_counts.cuh"
 #include "dp_dirs.cuh"
-#include "dp_lab.cuh"
 #include "dp_scores.cuh"
 
 template <int W>
@@ -99,53 +98,6 @@ extern "C" int host_dp_dirs(const int8_t* t, const int32_t* tl,
   }
   return 1;
 }
-
-// The CUDA kernel's job assignment: thread i takes jobs i, i + T, ...
-template <int G>
-static void run_inter(const int8_t* t, const int32_t* tl, const int8_t* p,
-                      const int32_t* pl, int n, int t_max, int p_max,
-                      int32_t* scores) {
-  const int threads = (n + G - 1) / G;
-  for (int i = 0; i < threads; ++i) {
-    int job[G], out[G];
-    for (int g = 0; g < G; ++g) job[g] = i + g * threads < n ? i + g * threads : -1;
-    t4dp::dp_inter_jobs<32, G>(t, tl, p, pl, t_max, p_max, job, out);
-    for (int g = 0; g < G; ++g)
-      if (job[g] >= 0) scores[job[g]] = out[g];
-  }
-}
-
-extern "C" int host_dp_inter(const int8_t* t, const int32_t* tl,
-                             const int8_t* p, const int32_t* pl, int n,
-                             int t_max, int p_max, int groups,
-                             int32_t* scores) {
-  switch (groups) {
-    case 2: run_inter<2>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
-    case 4: run_inter<4>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
-  }
-  return 1;
-}
-
-template <int FLAGS>
-static void run_abl(const int8_t* t, const int32_t* tl, const int8_t* p,
-                    const int32_t* pl, int n, int t_max, int p_max,
-                    int32_t* scores) {
-  for (int b = 0; b < n; ++b)
-    scores[b] = t4dp::dp_abl_job<32, FLAGS>(t + (size_t)b * t_max, t_max,
-                                            p + (size_t)b * p_max, p_max,
-                                            tl[b], pl[b]);
-}
-
-extern "C" int host_dp_abl(const int8_t* t, const int32_t* tl,
-                           const int8_t* p, const int32_t* pl, int n,
-                           int t_max, int p_max, int flags, int32_t* scores) {
-  switch (flags) {
-#define CASE(F) case F: run_abl<F>(t, tl, p, pl, n, t_max, p_max, scores); return 0;
-    CASE(0) CASE(1) CASE(2) CASE(4) CASE(8) CASE(16) CASE(32) CASE(64)
-#undef CASE
-  }
-  return 1;
-}
 """
 
 
@@ -171,9 +123,6 @@ def host_lib(tmp_path_factory):
     lib.host_dp_scores.restype = ci
     lib.host_dp_dirs.argtypes = [vp] * 4 + [ci] * 4 + [vp] * 2
     lib.host_dp_dirs.restype = ci
-    for fn in (lib.host_dp_inter, lib.host_dp_abl):
-        fn.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-        fn.restype = ci
     return lib
 
 
@@ -317,48 +266,11 @@ def test_dirs_header_matches_plain(host_lib, cap, w):
         np.testing.assert_array_equal(dirs, want_d.numpy())
 
 
-def _lab_host(fn, arg, tc, tl, pc, pl):
-    scores = np.empty(len(tl), np.int32)
-    assert fn(*_ptrs(tc, tl, pc, pl), len(tl), tc.shape[1], pc.shape[1], arg,
-              scores.ctypes.data) == 0
-    return scores
-
-
-@pytest.mark.parametrize("groups", [2, 4])
-def test_inter_header_matches_plain(host_lib, groups):
-    """G jobs per thread, interleaved, with a ragged last thread (n not a
-    multiple of G) and jobs of different row counts in one thread."""
-    tc, tl, pc, pl = _arbitrary_jobs(70 + groups, 301, 60, 52, 32)
-    want = banded_affine_scores_plain(
-        *[torch.from_numpy(a) for a in (tc, tl, pc, pl)], 32).numpy()
-    np.testing.assert_array_equal(
-        _lab_host(host_lib.host_dp_inter, groups, tc, tl, pc, pl), want)
-
-
-@pytest.mark.parametrize("flag", [None, "noshift", "statload", "notslice",
-                                  "nosub", "nokir", "noscan", "nojz"])
-def test_abl_header_matches_ablated_plain(host_lib, flag):
-    from trust4_tpu_torch.tools.dp_kernel_lab import (
-        ABL_FLAGS,
-        banded_affine_scores_ablated,
-    )
-
-    ablate = frozenset([flag] if flag else [])
-    tc, tl, pc, pl = _arbitrary_jobs(80, 300, 60, 52, 32)
-    args = [torch.from_numpy(a) for a in (tc, tl, pc, pl)]
-    want = banded_affine_scores_ablated(*args, 32, ablate).numpy()
-    got = _lab_host(host_lib.host_dp_abl, ABL_FLAGS.get(flag, 0), tc, tl, pc,
-                    pl)
-    np.testing.assert_array_equal(got, want)
-    if flag is None:
-        np.testing.assert_array_equal(
-            got, banded_affine_scores_plain(*args, 32).numpy())
-
-
 def test_new_cuda_sources_include_the_tested_headers():
     for src, calls in (("dp_dirs.cu", ["t4dp::dp_dirs_job<W>"]),
-                       ("dp_lab.cu", ["t4dp::dp_inter_jobs<W, G>",
-                                      "t4dp::dp_abl_job<W, FLAGS>"])):
+                       ("dp_lab.cu", ["t4dp::dp_inter_narrow<W, L, G>",
+                                      "t4dp::dp_scores_narrow<W, L, FLAGS>",
+                                      "CudaLanes<L>"])):
         with open(os.path.join(CSRC_DIR, src)) as f:
             text = f.read()
         assert f'#include "{src}h"' in text

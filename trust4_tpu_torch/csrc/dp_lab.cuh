@@ -1,250 +1,240 @@
-// The kernel lab's two variants of the scores DP: the arithmetic, shared by
-// the CUDA kernels (dp_lab.cu) and a host build.
+// The kernel lab's interleaved scores sweep: G jobs on one group of L
+// lanes, the arithmetic of dp_lab.cu's inter kernel and of its host build
+// in the CPU tests.
 //
-// Replaces the Pallas kernels of tools/dp_kernel_lab.py: _dp_kernel_inter
-// (l.51, G independent 128-lane groups interleaved in one row body) and
-// _dp_kernel_abl (l.279, the shipping row body with DP_ABLATE toggles that
-// remove pieces, for timing).  Both compute the scores DP of dp_scores.cuh
-// (the XLA function: text column clamp(j-1, 0, t_max-1), INT32_MIN for a
-// final cell outside the band) with the same sweep, split here into
-// init / row_begin / cell / row_end / final so that
+// Replaces the Pallas kernel _dp_kernel_inter (tools/dp_kernel_lab.py:51:
+// G independent 128-lane groups side by side, each recurrence step emitted
+// for every group before the next step).  On the card: the group sweep of
+// the scores kernel (dp_scores_group.cuh, one job's band over L lanes,
+// C = W/L cells a lane) carrying G jobs at once.  A lane holds the C cells
+// of each of its G jobs (G x C cells of m and e, G text windows), and each
+// step of a row, the exchanges included, is issued for job 0..G-1 before
+// the next step: the G shuffles of a step are independent, so their
+// latencies overlap, and so do the G dependency chains of a lane's cell
+// sweep.  Each job's arithmetic is dp_scores_group's, so every job's
+// score is bit for bit dp_scores_job's (banded_affine_scores_plain).  It
+// is a copy of that sweep with a job index, not dp_scores_group itself
+// made generic over G: written so, the scores kernel (G = 1) compiled to
+// other SASS than its own, and its code must not move for the lab.
 //
-//   * dp_inter_jobs<W, G> carries G jobs through it in one thread, cell by
-//     cell: for each cell k, the step of job 0, then job 1, ... — the CUDA
-//     form of G interleaved dependency chains;
-//   * dp_abl_job<W, FLAGS> runs one job with the pieces named by FLAGS
-//     removed at compile time.  With FLAGS == 0 it is dp_scores_job.
-//
-// dp_scores.cuh stays as it is: its kernel is on the main path.
-//
-// The ablation flags.  Each drops from the sweep the piece that DP_ABLATE
-// drops from the Pallas row body, where the TPU layout has one; the wrong
-// scores that result are the lab's, not the DP's:
-//   noshift  (1): the vertical neighbour is cell k of the previous row, not
-//                 k+1 (Pallas: shift_up is the identity).
-//   statload (2): no loads in the row loop: every row reuses row 1's text
-//                 window and query base (Pallas: every 8-row block loads
-//                 the first block's codes).
-//   notslice (4): the text window and query base of the first row of each
-//                 8-row block serve the whole block; the window moves by 8
-//                 at a block's end (Pallas: no per-row static slice).
-//   nosub    (8): the substitution is always +2 (no match test).
-//   nokir   (16): no band mask on base and on the stored e (Pallas: no
-//                 k_in_right mask on base and e_in).
-//   noscan  (32): no horizontal-gap running max: f = base.
-//   nojz    (64): no column-0 case: j == 0 is an ordinary (out-of-band)
-//                 cell (Pallas: no jz_blocks).
-// statload wins over notslice where both are set.
+// The lab's other kernel, the ablation kernel, needs no code here: it is
+// the scores kernel's own sweep with dp_scores_group's FLAGS.
 //
 // The header needs no CUDA headers: compiled by g++ with __host__ and
-// __device__ defined empty, it runs the same arithmetic on the CPU (the
-// port's CPU tests hold it against the plain PyTorch versions).
+// __device__ defined empty (HostLanes), it runs the same arithmetic on the
+// CPU.
 
 #pragma once
 
 #include <stdint.h>
 
-#include "dp_scores.cuh"  // t4dp's constants, imax, imin, text_at, kInt32Min
+#include "dp_scores_group.cuh"
+
+// The lab kernels' instances (dp_lab.cu), at the lab's band width W = 32
+// and every lane count L of the scores kernel's W = 32 instances
+// (T4DP_SCORES_INSTANCES): the ablation kernel as (L, FLAGS) for no flag
+// and each flag alone, the interleaved kernel as (L, G).
+#define T4DP_ABL_INSTANCES(X)                                           \
+  X(1, 0) X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(1, 16) X(1, 32) X(1, 64)    \
+  X(4, 0) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16) X(4, 32) X(4, 64)    \
+  X(8, 0) X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16) X(8, 32) X(8, 64)    \
+  X(16, 0) X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(16, 16) X(16, 32)      \
+  X(16, 64)
+#define T4DP_INTER_INSTANCES(X) \
+  X(1, 2) X(1, 4) X(4, 2) X(4, 4) X(8, 2) X(8, 4) X(16, 2) X(16, 4)
 
 namespace t4dp {
 
-constexpr int kAblNoShift = 1;
-constexpr int kAblStatLoad = 2;
-constexpr int kAblNoTSlice = 4;
-constexpr int kAblNoSub = 8;
-constexpr int kAblNoKir = 16;
-constexpr int kAblNoScan = 32;
-constexpr int kAblNoJz = 64;
-
-// One job's sweep state: the band's m, e and text window.
-template <int W>
-struct ScoresSweep {
-  int m[W], e[W], tw[W];
-  const int8_t* t;
-  const int8_t* p;
-  int t_max, t_len, p_len, left, right, neg_inf, rows;
-  int pi;  // the query code in use (held across rows by statload/notslice)
-};
-
-// Per-row scalars of a sweep.
-struct ScoresRow {
-  int pi, bound_m, j_base, j_hi, run;
-  bool p_is_n;
-};
-
-template <int W>
-__host__ __device__ inline void sweep_init(ScoresSweep<W>& s, const int8_t* t,
-                                           int t_max, const int8_t* p,
-                                           int p_max, int t_len, int p_len) {
-  const int go = kGapOpen;
-  s.t = t;
-  s.p = p;
-  s.t_max = t_max;
-  s.t_len = t_len;
-  s.p_len = p_len;
-  s.left = t_len < p_len ? 5 + (p_len - t_len) : 5;
-  s.right = t_len > p_len ? 5 + (t_len - p_len) : 5;
-  // (t+1)(p+1)*GO with int32 wraparound, as XLA computes it.
-  s.neg_inf = (int)((unsigned)(t_len + 1) * (unsigned)(p_len + 1) *
-                    (unsigned)go);
-  s.rows = imin(p_len, p_max);
-  s.pi = s.rows > 0 ? p[0] : kCodePad;
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    const int j0 = k - s.left;
-    const bool in_t0 = j0 >= 0 && j0 <= t_len;
-    s.m[k] = in_t0 ? (j0 == 0 ? 0 : go + j0 * go) : s.neg_inf;
-    s.e[k] = in_t0 ? (j0 == 0 ? 0 : go + (p_len + 1) * go) : s.neg_inf;
-    s.tw[k] = text_at(t, t_max, k - s.left);  // row 1 reads column k-left
-  }
-}
-
-template <int W, int FLAGS>
-__host__ __device__ inline ScoresRow row_begin(ScoresSweep<W>& s, int i) {
-  if constexpr (!(FLAGS & kAblStatLoad)) {
-    if (!(FLAGS & kAblNoTSlice) || ((i - 1) & 7) == 0) s.pi = s.p[i - 1];
-  }
-  ScoresRow r;
-  r.pi = s.pi;
-  r.p_is_n = s.pi == kCodeN;
-  r.bound_m = kGapOpen + i * kGapOpen;
-  r.j_base = i - s.left;  // column of cell 0
-  r.j_hi = imin(s.t_len, i + s.right);
-  r.run = kInt32Min;  // max of t_val over cells 0..k-1
-  return r;
-}
-
-template <int W, int FLAGS>
-__host__ __device__ inline void cell(ScoresSweep<W>& s, ScoresRow& r, int k) {
+// G jobs on one group's lanes.  t[g], p[g]: job g's code rows, with
+// t_len[g] = p_len[g] = 0 for a slot with no job.  The group loops to its
+// longest job's rows (its warp's on the card, X::rows); each job stops at
+// its own.  score[g][s], own[g][s] as dp_scores_group's for job g.
+template <int W, int L, int G, class X>
+__host__ __device__ inline void dp_inter_group(
+    const X& x, const int8_t* const (&t)[G], int t_max,
+    const int8_t* const (&p)[G], int p_max, const int (&t_len)[G],
+    const int (&p_len)[G], int (&score)[G][X::N], bool (&own)[G][X::N]) {
+  static_assert(W % L == 0, "L must divide W");
+  constexpr int C = W / L;
+  constexpr int N = X::N;
   const int go = kGapOpen, ge = kGapExtend, go_ge = kGapOpen + kGapExtend;
-  const int j = r.j_base + k;
-  const bool in_band = j >= 1 && j <= r.j_hi;
-  const bool is_col0 = !(FLAGS & kAblNoJz) && j == 0;
 
-  int m_up, e_up;
-  if constexpr ((FLAGS & kAblNoShift) != 0) {
-    m_up = s.m[k];
-    e_up = s.e[k];
-  } else {
-    m_up = k + 1 < W ? s.m[k + 1] : kBigNeg;
-    e_up = k + 1 < W ? s.e[k + 1] : kBigNeg;
-  }
-  const int e_new = imax(e_up + ge, m_up + go_ge);
-  int sub = kMatch;
-  if constexpr (!(FLAGS & kAblNoSub)) {
-    const int tj = s.tw[k];
-    sub = (tj == r.pi || tj == kCodeN || r.p_is_n) ? kMatch : kMismatch;
-  }
-  const int diag = s.m[k] + sub;
-
-  int base = is_col0 ? r.bound_m : imax(diag, e_new);
-  if constexpr (!(FLAGS & kAblNoKir)) {
-    if (!(in_band || is_col0)) base = kBigNeg;
-  }
-  int f_new;
-  if constexpr ((FLAGS & kAblNoScan) != 0) {
-    f_new = base;
-  } else {
-    f_new = k == 0 ? kBigNeg : r.run - k * (-ge);
-    r.run = imax(r.run, (is_col0 ? r.bound_m : base + go) + k * (-ge));
-  }
-
-  const int m_fin = imax(base, f_new);
-  s.m[k] = is_col0 ? r.bound_m : (in_band ? m_fin : s.neg_inf);
-  if constexpr ((FLAGS & kAblNoKir) != 0) {
-    s.e[k] = e_new;
-  } else {
-    s.e[k] = in_band ? e_new : s.neg_inf;
-  }
-}
-
-// Moves the text window to the next row.
-template <int W, int FLAGS>
-__host__ __device__ inline void row_end(ScoresSweep<W>& s, const ScoresRow& r,
-                                        int i) {
-  if constexpr ((FLAGS & kAblStatLoad) != 0) {
-    return;
-  } else if constexpr ((FLAGS & kAblNoTSlice) != 0) {
-    if ((i & 7) == 0) {
-#pragma unroll
-      for (int k = 0; k < W; ++k)
-        s.tw[k] = k + 8 < W ? s.tw[k + 8] : text_at(s.t, s.t_max, r.j_base + k);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < W; ++k)
-      s.tw[k] = k + 1 < W ? s.tw[k + 1] : text_at(s.t, s.t_max, r.j_base + W - 1);
-  }
-}
-
-// m[p_len][t_len], read with a static-index select (a dynamic index would
-// push the band arrays out of registers); INT32_MIN off the band.
-template <int W>
-__host__ __device__ inline int sweep_final(const ScoresSweep<W>& s) {
-  const int k_final = s.t_len - s.p_len + s.left;
-  int score = kInt32Min;
-#pragma unroll
-  for (int k = 0; k < W; ++k)
-    if (k == k_final) score = s.m[k];
-  return score;
-}
-
-// One job with the pieces FLAGS names removed; FLAGS == 0 is
-// dp_scores_job<W>.
-template <int W, int FLAGS>
-__host__ __device__ inline int dp_abl_job(const int8_t* t, int t_max,
-                                          const int8_t* p, int p_max,
-                                          int t_len, int p_len) {
-  ScoresSweep<W> s;
-  sweep_init<W>(s, t, t_max, p, p_max, t_len, p_len);
-  for (int i = 1; i <= s.rows; ++i) {
-    ScoresRow r = row_begin<W, FLAGS>(s, i);
-#pragma unroll
-    for (int k = 0; k < W; ++k) cell<W, FLAGS>(s, r, k);
-    row_end<W, FLAGS>(s, r, i);
-  }
-  return sweep_final<W>(s);
-}
-
-// G jobs in one thread, interleaved cell by cell.  job[g] < 0 marks no
-// job (its slot sweeps nothing and out[g] is not written).  Code rows are
-// (n, t_max) / (n, p_max) int8.  Each job stops at its own p_len: rows
-// beyond it leave that job's state alone.
-template <int W, int G>
-__host__ __device__ inline void dp_inter_jobs(
-    const int8_t* t_codes, const int32_t* t_lens, const int8_t* p_codes,
-    const int32_t* p_lens, int t_max, int p_max, const int* job, int* out) {
-  ScoresSweep<W> s[G];
+  int left[G], right[G], neg_inf[G], rows[G];
+  int m[G][N][C], e[G][N][C];
+  TextWindow<C> tw[G][N];
   int rows_max = 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const int b = job[g] < 0 ? 0 : job[g];
-    sweep_init<W>(s[g], t_codes + (size_t)b * t_max, t_max,
-                  p_codes + (size_t)b * p_max, p_max, t_lens[b], p_lens[b]);
-    if (job[g] < 0) s[g].rows = 0;
-    rows_max = imax(rows_max, s[g].rows);
+    left[g] = t_len[g] < p_len[g] ? 5 + (p_len[g] - t_len[g]) : 5;
+    right[g] = t_len[g] > p_len[g] ? 5 + (t_len[g] - p_len[g]) : 5;
+    // (t+1)(p+1)*GO with int32 wraparound, as XLA computes it.
+    neg_inf[g] = (int)((unsigned)(t_len[g] + 1) * (unsigned)(p_len[g] + 1) *
+                       (unsigned)go);
+    rows[g] = imin(p_len[g], p_max);
+    rows_max = imax(rows_max, rows[g]);
+    for (int s = 0; s < N; ++s) {
+      const int k0 = x.lane(s) * C;
+      tw[g][s].clear();
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j0 = k0 + c - left[g];
+        const bool in_t0 = j0 >= 0 && j0 <= t_len[g];
+        m[g][s][c] = in_t0 ? (j0 == 0 ? 0 : go + j0 * go) : neg_inf[g];
+        e[g][s][c] =
+            in_t0 ? (j0 == 0 ? 0 : go + (p_len[g] + 1) * go) : neg_inf[g];
+        tw[g][s].set(c, text_at(t[g], t_max, j0));
+      }
+    }
   }
-  for (int i = 1; i <= rows_max; ++i) {
-    ScoresRow r[G] = {};
+
+  const int loop_rows = x.rows(rows_max);
+  for (int i = 1; i <= loop_rows; ++i) {
+    const int bound_m = go + i * go;
     bool live[G];
+    int pi[G], j_base[G], j_hi[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      live[g] = i <= s[g].rows;
-      if (live[g]) r[g] = row_begin<W, 0>(s[g], i);
+      live[g] = i <= rows[g];
+      pi[g] = live[g] ? p[g][i - 1] : kCodePad;
+      j_base[g] = i - left[g];
+      j_hi[g] = imin(t_len[g], i + right[g]);
     }
+
+    // 1. The cell after each lane's last, for every job: 2G shuffles.
+    int up_m[G][N], up_e[G][N];
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
+    for (int g = 0; g < G; ++g)
+      for (int s = 0; s < N; ++s) {
+        up_m[g][s] = m[g][s][0];
+        up_e[g][s] = e[g][s][0];
+      }
+    if constexpr (L > 1) {
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        if (live[g]) cell<W, 0>(s[g], r[g], k);
+      for (int g = 0; g < G; ++g) {
+        x.shfl_down(up_m[g], 1);
+        x.shfl_down(up_e[g], 1);
+      }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      if (live[g]) row_end<W, 0>(s[g], r[g], i);
-  }
+      for (int s = 0; s < N; ++s)
+        if (x.lane(s) == L - 1) {
+          up_m[g][s] = kBigNeg;
+          up_e[g][s] = kBigNeg;
+        }
+
+    // 2. Each job's cell sweep: E, the diagonal, the largest F candidate.
+    int run[G][N];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    if (job[g] >= 0) out[g] = sweep_final<W>(s[g]);
+    for (int g = 0; g < G; ++g)
+      for (int s = 0; s < N; ++s) {
+        run[g][s] = kInt32Min;
+        if (!live[g]) continue;
+        const int k0 = x.lane(s) * C;
+        const bool p_is_n = pi[g] == kCodeN;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int k = k0 + c;
+          const int j = j_base[g] + k;
+          const bool in_band = j >= 1 && j <= j_hi[g];
+          const bool is_col0 = j == 0;
+          const int tj = tw[g][s].get(c);
+          const bool eq = tj == pi[g] || tj == kCodeN || p_is_n;
+          const int m_up = c + 1 < C ? m[g][s][c + 1] : up_m[g][s];
+          const int e_up = c + 1 < C ? e[g][s][c + 1] : up_e[g][s];
+          const int e_new = imax(e_up + ge, m_up + go_ge);
+          const int diag = m[g][s][c] + (eq ? kMatch : kMismatch);
+          const int base = is_col0 ? bound_m
+                                   : (in_band ? imax(diag, e_new) : kBigNeg);
+          run[g][s] =
+              imax(run[g][s], (is_col0 ? bound_m : base + go) + k * (-ge));
+          m[g][s][c] = diag;
+          e[g][s][c] = in_band ? e_new : neg_inf[g];
+        }
+      }
+
+    // 3. The F running max over the lanes, log2(L) + 1 shuffle steps of G
+    // shuffles each; then each job's finishing pass and window shift.
+    if constexpr (L > 1) {
+#pragma unroll
+      for (int d = 1; d < L; d *= 2) {
+        int o[G][N];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          for (int s = 0; s < N; ++s) o[g][s] = run[g][s];
+          x.shfl_up(o[g], d);  // lanes below d get their own value back
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          for (int s = 0; s < N; ++s) run[g][s] = imax(run[g][s], o[g][s]);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) x.shfl_up(run[g], 1);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      for (int s = 0; s < N; ++s) {
+        if (!live[g]) continue;
+        const int k0 = x.lane(s) * C;
+        int r = x.lane(s) == 0 ? kInt32Min : run[g][s];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int k = k0 + c;
+          const int j = j_base[g] + k;
+          const bool in_band = j >= 1 && j <= j_hi[g];
+          const bool is_col0 = j == 0;
+          const int base =
+              is_col0 ? bound_m
+                      : (in_band ? imax(m[g][s][c], e[g][s][c]) : kBigNeg);
+          const int f_new = k == 0 ? kBigNeg : r - k * (-ge);
+          r = imax(r, (is_col0 ? bound_m : base + go) + k * (-ge));
+          m[g][s][c] =
+              is_col0 ? bound_m : (in_band ? imax(base, f_new) : neg_inf[g]);
+        }
+        tw[g][s].shift(text_at(t[g], t_max, j_base[g] + k0 + C - 1));
+      }
+  }
+
+  // Each job's final cell, with a static-index select.
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int k_final = t_len[g] - p_len[g] + left[g];
+    const int owner = (k_final >= 0 && k_final < W) ? k_final / C : 0;
+    for (int s = 0; s < N; ++s) {
+      const int k0 = x.lane(s) * C;
+      int sc = kInt32Min;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (k0 + c == k_final) sc = m[g][s][c];
+      score[g][s] = sc;
+      own[g][s] = x.lane(s) == owner;
+    }
+  }
+}
+
+// The G jobs on the narrowest tile the warp can share: need is the
+// largest band_need among the group's jobs (0: none), and X::width takes
+// the widest narrow_width over the warp, as dp_scores_narrow does for one
+// job a group.
+template <int W, int L, int G, class X>
+__host__ __device__ inline void dp_inter_narrow(
+    const X& x, int need, const int8_t* const (&t)[G], int t_max,
+    const int8_t* const (&p)[G], int p_max, const int (&t_len)[G],
+    const int (&p_len)[G], int (&score)[G][X::N], bool (&own)[G][X::N]) {
+  const int w = x.width(narrow_width<W, L>(need));
+  if constexpr (W > 16 && 16 % L == 0)
+    if (w == 16)
+      return dp_inter_group<16, L, G>(x, t, t_max, p, p_max, t_len, p_len,
+                                      score, own);
+  if constexpr (W > 24 && 24 % L == 0)
+    if (w == 24)
+      return dp_inter_group<24, L, G>(x, t, t_max, p, p_max, t_len, p_len,
+                                      score, own);
+  if constexpr (W > 32 && 32 % L == 0)
+    if (w == 32)
+      return dp_inter_group<32, L, G>(x, t, t_max, p, p_max, t_len, p_len,
+                                      score, own);
+  dp_inter_group<W, L, G>(x, t, t_max, p, p_max, t_len, p_len, score, own);
 }
 
 }  // namespace t4dp

@@ -78,6 +78,28 @@ struct CudaLanes {
 #endif
   }
 };
+
+// Copies the code rows of a block's jobs into shared memory with the
+// block's kThreads threads, coalesced: job q of the block (the launch
+// order's order[g0 + q]) at q * (t_max + p_max), its query row after its
+// text row.  The group kernels' staging (dp_counts.cu, dp_scores.cu,
+// dp_lab.cu).
+template <int kThreads>
+__device__ inline void stage_rows(const int8_t* __restrict__ t_codes,
+                                  const int8_t* __restrict__ p_codes,
+                                  const int64_t* __restrict__ order, int g0,
+                                  int jobs, int t_max, int p_max,
+                                  int8_t* rows) {
+  const int stride = t_max + p_max;
+  for (int idx = threadIdx.x; idx < jobs * t_max; idx += kThreads) {
+    const int q = idx / t_max, off = idx - q * t_max;
+    rows[q * stride + off] = t_codes[order[g0 + q] * t_max + off];
+  }
+  for (int idx = threadIdx.x; idx < jobs * p_max; idx += kThreads) {
+    const int q = idx / p_max, off = idx - q * p_max;
+    rows[q * stride + t_max + off] = p_codes[order[g0 + q] * p_max + off];
+  }
+}
 #endif
 
 // The text codes a lane's C cells read, four to a 32-bit word: cell c in

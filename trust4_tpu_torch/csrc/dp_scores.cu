@@ -38,23 +38,6 @@ namespace {
 
 constexpr int kBlock = 128;
 
-// Copies the code rows of the block's jobs into shared memory: job q of
-// the block at q * (t_max + p_max), its query row after its text row.
-__device__ void stage_rows(const int8_t* __restrict__ t_codes,
-                           const int8_t* __restrict__ p_codes,
-                           const int64_t* __restrict__ order, int g0,
-                           int jobs, int t_max, int p_max, int8_t* rows) {
-  const int stride = t_max + p_max;
-  for (int idx = threadIdx.x; idx < jobs * t_max; idx += kBlock) {
-    const int q = idx / t_max, off = idx - q * t_max;
-    rows[q * stride + off] = t_codes[order[g0 + q] * t_max + off];
-  }
-  for (int idx = threadIdx.x; idx < jobs * p_max; idx += kBlock) {
-    const int q = idx / p_max, off = idx - q * p_max;
-    rows[q * stride + t_max + off] = p_codes[order[g0 + q] * p_max + off];
-  }
-}
-
 template <int W, int L>
 __global__ void __launch_bounds__(kBlock)
     dp_scores_kernel(const int8_t* __restrict__ t_codes,
@@ -66,8 +49,8 @@ __global__ void __launch_bounds__(kBlock)
   extern __shared__ int8_t rows[];
   constexpr int kJobs = kBlock / L;
   const int g0 = blockIdx.x * kJobs;
-  stage_rows(t_codes, p_codes, order, g0, min(kJobs, n - g0), t_max, p_max,
-             rows);
+  t4dp::stage_rows<kBlock>(t_codes, p_codes, order, g0, min(kJobs, n - g0),
+                           t_max, p_max, rows);
   __syncthreads();
 
   // Every lane runs to the end: the group's exchanges need the whole

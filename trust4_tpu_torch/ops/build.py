@@ -49,8 +49,9 @@ _SIGNATURES = {
         "t4_dp_dirs": ([_VP] * 4 + [_CI] * 4 + [_VP] * 3, _CI),
     },
     "dp_lab": {
-        "t4_dp_inter": ([_VP] * 4 + [_CI] * 5 + [_VP] * 2, _CI),
-        "t4_dp_abl": ([_VP] * 4 + [_CI] * 5 + [_VP] * 2, _CI),
+        "t4_dp_inter": ([_VP] * 5 + [_CI] * 6 + [_VP] * 2, _CI),
+        "t4_dp_abl": ([_VP] * 5 + [_CI] * 6 + [_VP] * 2, _CI),
+        "t4_dp_lab_instances": ([_CI, _VP, _CI], _CI),
     },
     "microbench": {
         "t4_microbench": ([_CI] * 4 + [_VP] * 2 + [_CI] * 3 + [_VP], _CI),

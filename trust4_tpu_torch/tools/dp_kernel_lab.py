@@ -6,29 +6,40 @@ Usage (on the card; ``--device cpu`` runs the plain versions)::
 
     python -m trust4_tpu_torch.tools.dp_kernel_lab [base|inter2|inter4|abl|
         prep|tonly|gonly|selshift ...] [--device cuda|cpu] [--n N]
+        [--lanes L]
     DP_ABLATE=nosub python -m trust4_tpu_torch.tools.dp_kernel_lab abl
 
 Modes:
 
-* ``base``: the scores kernel of the main path (ops/dp_scores.py);
-* ``inter2``, ``inter4``: ``scores_inter``, the kernel that carries G jobs
-  per thread interleaved cell by cell (csrc/dp_lab.cu, replacing the
-  Pallas ``_dp_kernel_inter``); its plain version is
+* ``base``: the scores kernel of the main path (ops/dp_scores.py), the
+  instance its ``CHOICE`` table picks (or ``--lanes``);
+* ``inter2``, ``inter4``: ``scores_inter``, the scores kernel's lane-group
+  sweep carrying G = 2 or 4 jobs a group, each step issued for the G jobs
+  before the next (csrc/dp_lab.cuh, replacing the Pallas
+  ``_dp_kernel_inter``); its plain version is
   ``banded_affine_scores_plain``;
-* ``abl``: ``scores_abl``, the scores sweep with the pieces that
-  ``DP_ABLATE`` names (comma-separated: noshift, statload, notslice,
-  nosub, nokir, noscan, nojz; csrc/dp_lab.cuh says what each removes)
-  removed at compile time (replacing ``_dp_kernel_abl``); its plain
-  version is ``banded_affine_scores_ablated``.  The kernel is built for
-  no flag and for each flag alone;
+* ``abl``: ``scores_abl``, the scores kernel's own sweep with the pieces
+  that ``DP_ABLATE`` names (comma-separated: noshift, statload, notslice,
+  nosub, nokir, noscan, nojz; csrc/dp_scores_group.cuh says what each
+  removes) removed at compile time (replacing ``_dp_kernel_abl``); its
+  plain version is ``banded_affine_scores_ablated``.  Built for no flag
+  and for each flag alone;
 * ``prep``, ``tonly``, ``gonly``, ``selshift``: the JAX tool's XLA input
   preparations (pad + shift-gather + transpose, transpose, gather,
   select-over-shifts) as torch programs with the same outputs.
 
-Each mode prints ms per launch (median of CUDA-event-timed launches) and
-G cells/s over N x 150 x W cells, as the JAX tool does, and each scores
-mode is checked against ``base``: a mode that must equal it and does not
-raises.
+The lab kernels are built for every lane count L in ``LANES`` (the scores
+kernel's L at W = 32); ``--lanes`` picks one for every scores mode.
+Without it ``abl`` and ``base`` take the scores wrapper's L for the batch
+(``dp_scores.lanes_for``: 1 at the bench shape) and ``inter2``/``inter4``
+take ``INTER_LANES``.  Every scores mode takes its jobs in the scores
+wrapper's order (``dp_counts.job_order``) and prints two times: the
+wrapper's, the sort included, and the launch alone on a precomputed order
+(on the CPU both are the plain version's); the summary compares the
+launches.  Times are medians of CUDA-event-timed calls (the host clock on
+the CPU), with G cells/s over N x 150 x W cells, as the JAX tool prints
+them.  Each scores mode is checked against ``base``: a mode that must
+equal it (inter2, inter4, abl with no flag) and does not raises.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import argparse
 import os
 import sys
 import time
-from typing import Dict, FrozenSet, Iterable, List
+from typing import Dict, FrozenSet, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -52,20 +63,32 @@ from trust4_tpu_torch.ops.dp import (
     _CODE_PAD,
     banded_affine_scores_plain,
 )
+from trust4_tpu_torch.ops.dp_counts import job_order, to_device_jobs
+from trust4_tpu_torch.ops.dp_scores import lanes_for
 
-# The band width the lab kernels are compiled for, and the interleave
-# factors of scores_inter.
+# The band width the lab kernels are compiled for, the jobs a lane group
+# carries in scores_inter, and the lanes per job of their instances: every
+# L of the scores kernel's W = 32 instances (csrc/dp_lab.cuh,
+# T4DP_ABL_INSTANCES: each L with no flag and each flag alone;
+# T4DP_INTER_INSTANCES: each L with each G).
 LAB_BAND = 32
 GROUPS = (2, 4)
+LANES = (1, 4, 8, 16)
 
-# DP_ABLATE names -> the flag bits of csrc/dp_lab.cuh (t4dp::kAbl*).
+# scores_inter's L when none is given: the least L whose G = 4 instance
+# does not spill (chip_smoke.py's build phase, PERF.md section 6).
+INTER_LANES = 4
+
+# DP_ABLATE names -> the flag bits of csrc/dp_scores_group.cuh
+# (t4dp::kAbl*).
 ABL_FLAGS = {"noshift": 1, "statload": 2, "notslice": 4, "nosub": 8,
              "nokir": 16, "noscan": 32, "nojz": 64}
 
-# Kernel launches made by this process (one per call on a CUDA tensor),
-# of scores_inter by interleave factor and of scores_abl.
-INTER_LAUNCHES = {g: 0 for g in GROUPS}
-ABL_LAUNCHES = 0
+# Kernel launches made by this process (one per launch on the card), by
+# (kind, L): kind "inter2" or "inter4" (scores_inter with G = 2, 4) or
+# "abl" (scores_abl, any flag).
+KINDS = ("inter2", "inter4", "abl")
+LAUNCHES = {(kind, lanes): 0 for kind in KINDS for lanes in LANES}
 
 MODES = ("base", "inter2", "inter4", "abl", "prep", "tonly", "gonly",
          "selshift")
@@ -194,32 +217,14 @@ def banded_affine_scores_ablated(
     return where(inside, score, torch.iinfo(i32).min)[:, 0]
 
 
-def _launch(fn_name: str, arg: int, t_codes, t_lens, p_codes, p_lens,
-            band_width: int) -> torch.Tensor:
-    from trust4_tpu_torch.ops.dp_scores import _check
-
-    _check(t_codes, t_lens, p_codes, p_lens, band_width)
-    if band_width != LAB_BAND:
-        raise ValueError(f"the lab kernels are built for W={LAB_BAND}")
-    n = t_codes.shape[0]
-    dev = t_codes.device
-    scores = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return scores
-
-    from trust4_tpu_torch.ops.build import load
-
-    lib = load("dp_lab")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn_name)(
-            t_codes.data_ptr(), t_lens.data_ptr(), p_codes.data_ptr(),
-            p_lens.data_ptr(), n, t_codes.shape[1], p_codes.shape[1],
-            band_width, arg, scores.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
-    return scores
+def _lanes(lanes: Optional[int], default: Optional[int] = None) -> int:
+    """The instance's L: ``lanes``, or ``default`` for None; an L the lab
+    kernels are not built for raises."""
+    lanes = default if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"lanes {lanes}: the lab kernels are built for L "
+                         f"in {LANES}")
+    return lanes
 
 
 def _device_of(t_codes: torch.Tensor) -> str:
@@ -230,28 +235,96 @@ def _device_of(t_codes: torch.Tensor) -> str:
     return t_codes.device.type
 
 
+def launch(kind: str, arg: int, t_codes, t_lens, p_codes, p_lens,
+           band_width: int, lanes: int, order: torch.Tensor) -> torch.Tensor:
+    """One launch of a lab kernel on CUDA inputs: kind "inter" (arg: G)
+    or "abl" (arg: the flag bits, 0 or one flag), the (lanes, arg)
+    instance, taking the pairs in ``order`` ((N,) int64 on the card, a
+    permutation); the scores are in input order.  The wrappers' own path;
+    chip_smoke.py and the card tests call it to time and check every
+    instance with the sort left out."""
+    from trust4_tpu_torch.ops.dp_scores import _check
+
+    _check(t_codes, t_lens, p_codes, p_lens, band_width)
+    if band_width != LAB_BAND:
+        raise ValueError(f"the lab kernels are built for W={LAB_BAND}")
+    _lanes(lanes)
+    if kind == "inter":
+        if arg not in GROUPS:
+            raise ValueError(f"groups {arg} not in {GROUPS}")
+        fn, counter = "t4_dp_inter", f"inter{arg}"
+    elif kind == "abl":
+        if arg != 0 and arg not in ABL_FLAGS.values():
+            raise ValueError(f"flags {arg}: built for no flag or one flag")
+        fn, counter = "t4_dp_abl", "abl"
+    else:
+        raise ValueError(f"kind {kind!r} not in ('inter', 'abl')")
+    n = t_codes.shape[0]
+    dev = t_codes.device
+    scores = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return scores
+    if order.dtype != torch.int64 or order.shape != (n,) or \
+            order.device != dev:
+        raise ValueError("order must be (N,) int64 on the inputs' device")
+
+    from trust4_tpu_torch.ops.build import load
+
+    lib = load("dp_lab")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(
+            t_codes.data_ptr(), t_lens.data_ptr(), p_codes.data_ptr(),
+            p_lens.data_ptr(), order.data_ptr(), n, t_codes.shape[1],
+            p_codes.shape[1], band_width, lanes, arg, scores.data_ptr(),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
+    LAUNCHES[(counter, lanes)] += 1
+    return scores
+
+
+def instances(kind: str) -> List[tuple]:
+    """The (lanes, arg) pairs the built library takes for kind "abl"
+    (arg: flag bits) or "inter" (arg: G), from its
+    ``t4_dp_lab_instances``."""
+    import ctypes
+
+    from trust4_tpu_torch.ops.build import load
+
+    buf = (ctypes.c_int * 128)()
+    k = load("dp_lab").t4_dp_lab_instances(
+        {"abl": 0, "inter": 1}[kind], buf, 64)
+    return [(buf[2 * i], buf[2 * i + 1]) for i in range(min(k, 64))]
+
+
 def scores_inter(t_codes, t_lens, p_codes, p_lens, band_width: int,
-                 groups: int) -> torch.Tensor:
-    """(N,) int32 scores as banded_affine_scores_plain, with ``groups``
-    jobs per thread interleaved on the card (a CPU tensor runs the plain
-    version)."""
+                 groups: int, lanes: Optional[int] = None) -> torch.Tensor:
+    """(N,) int32 scores as banded_affine_scores_plain, on the card with
+    ``groups`` jobs a lane group and ``lanes`` lanes a group (None:
+    INTER_LANES), the jobs in the scores wrapper's order; a CPU tensor
+    runs the plain version."""
     if groups not in GROUPS:
         raise ValueError(f"groups {groups} not in {GROUPS}")
+    lanes = _lanes(lanes, INTER_LANES)
     if _device_of(t_codes) == "cpu":
         return banded_affine_scores_plain(t_codes, t_lens, p_codes, p_lens,
                                           band_width)
-    out = _launch("t4_dp_inter", groups, t_codes, t_lens, p_codes, p_lens,
-                  band_width)
-    INTER_LAUNCHES[groups] += 1
-    return out
+    return launch("inter", groups, t_codes, t_lens, p_codes, p_lens,
+                  band_width, lanes, job_order(t_lens, p_lens))
 
 
 def scores_abl(t_codes, t_lens, p_codes, p_lens, band_width: int,
-               ablate: Iterable[str] = frozenset()) -> torch.Tensor:
+               ablate: Iterable[str] = frozenset(),
+               lanes: Optional[int] = None) -> torch.Tensor:
     """(N,) int32 scores as banded_affine_scores_ablated(..., ablate); on
-    the card no flag or one flag (the instances csrc/dp_lab.cu builds)."""
-    global ABL_LAUNCHES
+    the card the scores kernel's sweep with no flag or one flag removed,
+    ``lanes`` lanes a job (None: the scores wrapper's L for the batch,
+    dp_scores.lanes_for), the jobs in its order; a CPU tensor runs the
+    plain version."""
     ablate = parse_ablate(",".join(ablate))
+    lanes = _lanes(lanes, lanes_for(t_codes.shape[0], LAB_BAND))
     if _device_of(t_codes) == "cpu":
         return banded_affine_scores_ablated(t_codes, t_lens, p_codes, p_lens,
                                             band_width, ablate)
@@ -259,10 +332,8 @@ def scores_abl(t_codes, t_lens, p_codes, p_lens, band_width: int,
         raise ValueError(f"the ablation kernel is built for no flag or one "
                          f"flag, not {sorted(ablate)}")
     flags = sum(ABL_FLAGS[a] for a in ablate)
-    out = _launch("t4_dp_abl", flags, t_codes, t_lens, p_codes, p_lens,
-                  band_width)
-    ABL_LAUNCHES += 1
-    return out
+    return launch("abl", flags, t_codes, t_lens, p_codes, p_lens,
+                  band_width, lanes, job_order(t_lens, p_lens))
 
 
 # ---- the JAX tool's input preparations, as torch programs ----
@@ -378,12 +449,16 @@ def _time_ms(fn, device: str, n: int) -> float:
 
 def run_modes(modes: List[str], device: str = "cuda", n: int = 65536,
               ablate: FrozenSet[str] = frozenset(),
-              n_timed: int = 15) -> Dict[str, dict]:
-    """Runs each mode at the bench shape with n pairs; returns {mode: {ms,
-    cells_per_s, match_base}}.  Raises where a mode that computes the
-    base scores (inter2, inter4, abl with no flag) differs from them."""
+              n_timed: int = 15, lanes: Optional[int] = None
+              ) -> Dict[str, dict]:
+    """Runs each mode at the bench shape with n pairs; returns {label:
+    record}: for every mode ``ms`` (its call, the wrapper's for a scores
+    mode) and ``cells_per_s``, and for a scores mode ``launch_ms`` (the
+    launch alone, on a precomputed order), ``lanes`` and ``match_base``.
+    ``lanes`` picks every scores mode's instance (None: each wrapper's
+    default).  Raises where a mode that computes the base scores
+    (inter2, inter4, abl with no flag) differs from them."""
     from trust4_tpu_torch.ops import dp_scores
-    from trust4_tpu_torch.ops.dp_counts import to_device_jobs
 
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (pass --device cpu for the plain "
@@ -394,48 +469,75 @@ def run_modes(modes: List[str], device: str = "cuda", n: int = 65536,
     cells = n * 150 * w
     print(f"device: {device}  N={n} L=150 W={w} "
           f"cells/launch={cells / 1e9:.2f}G", flush=True)
-    calls = {
-        "base": lambda: dp_scores.banded_affine_scores(*args, w),
-        "inter2": lambda: scores_inter(*args, w, 2),
-        "inter4": lambda: scores_inter(*args, w, 4),
-        "abl": lambda: scores_abl(*args, w, ablate),
+    flags = sum(ABL_FLAGS[a] for a in ablate)
+    # scores mode -> (L, its wrapper call, its launch on `order`).
+    scores = {
+        "base": (_lanes(lanes, lanes_for(n, w)),
+                 lambda ln: dp_scores.banded_affine_scores(*args, w),
+                 lambda ln, o: dp_scores.launch(*args, w, ln, o)),
+        "abl": (_lanes(lanes, lanes_for(n, w)),
+                lambda ln: scores_abl(*args, w, ablate, ln),
+                lambda ln, o: launch("abl", flags, *args, w, ln, o)),
+    }
+    for g in GROUPS:
+        scores[f"inter{g}"] = (
+            _lanes(lanes, INTER_LANES),
+            lambda ln, g=g: scores_inter(*args, w, g, ln),
+            lambda ln, o, g=g: launch("inter", g, *args, w, ln, o))
+    preps = {
         "prep": lambda: prep_only(*args, w)[0],
         "tonly": lambda: transpose_only(args[0]),
         "gonly": lambda: gather_only(args[0], args[1], args[3]),
         "selshift": lambda: selshift_prep(args[0], args[1], args[3]),
     }
+    order = job_order(args[1], args[3]) if device == "cuda" else None
     must_match = {"inter2", "inter4"} | ({"abl"} if not ablate else set())
     results: Dict[str, dict] = {}
     ref = None
     for name in modes:
-        if name not in calls:
+        if name not in scores and name not in preps:
             raise ValueError(f"unknown mode {name!r}; modes: {MODES}")
         label = f"abl {','.join(sorted(ablate)) or '(no flag)'}" \
             if name == "abl" else name
         print(f"[{label}]", flush=True)
-        out = calls[name]()
         rec = {}
-        if name in ("base", "inter2", "inter4", "abl"):
+        if name in scores:
+            ln, call, launch_on = scores[name]
+            out = call(ln)
             if ref is None:
                 ref = out if name == "base" else \
                     dp_scores.banded_affine_scores(*args, w)
             ok = bool(torch.equal(ref, out))
-            rec["match_base"] = ok
-            print(f"  scores match base: {ok}", flush=True)
+            rec.update(lanes=ln, match_base=ok)
+            print(f"  L={ln}  scores match base: {ok}", flush=True)
             if not ok and name in must_match:
                 bad = torch.nonzero(ref != out)[:5, 0].tolist()
                 raise AssertionError(
                     f"{label}: scores differ from base at pairs {bad}")
+            rec["ms"] = _time_ms(lambda: call(ln), device, n_timed)
+            rec["launch_ms"] = (
+                _time_ms(lambda: launch_on(ln, order), device, n_timed)
+                if device == "cuda" else rec["ms"])
+            rec["cells_per_s"] = cells / (rec["launch_ms"] * 1e-3)
+            times = (f"wrapper {rec['ms']:.4f} ms (sort included)  launch "
+                     f"{rec['launch_ms']:.4f} ms" if device == "cuda" else
+                     f"plain version {rec['ms']:.4f} ms")
+            print(f"  {times}  {rec['cells_per_s'] / 1e9:.2f} G cells/s",
+                  flush=True)
         else:
+            out = preps[name]()
             print(f"  output {tuple(out.shape)} {out.dtype}", flush=True)
-        rec["ms"] = _time_ms(calls[name], device, n_timed)
-        rec["cells_per_s"] = cells / (rec["ms"] * 1e-3)
-        print(f"  {rec['ms']:.4f} ms/launch  "
-              f"{rec['cells_per_s'] / 1e9:.2f} G cells/s", flush=True)
+            rec["ms"] = _time_ms(preps[name], device, n_timed)
+            rec["cells_per_s"] = cells / (rec["ms"] * 1e-3)
+            print(f"  {rec['ms']:.4f} ms/launch  "
+                  f"{rec['cells_per_s'] / 1e9:.2f} G cells/s", flush=True)
         results[label] = rec
-    print("\nsummary:")
+    print("\nsummary (scores modes: "
+          + ("the launch alone):" if device == "cuda" else
+             "the plain version):"))
     for k, v in results.items():
-        print(f"  {k}: {v['cells_per_s'] / 1e9:.2f} G cells/s")
+        at = f" L={v['lanes']}" if "lanes" in v else ""
+        print(f"  {k}{at}: {v['cells_per_s'] / 1e9:.2f} G cells/s")
     return results
 
 
@@ -445,9 +547,12 @@ def main(argv=None) -> int:
                     help=f"any of {', '.join(MODES)}")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--n", type=int, default=65536, help="pairs per launch")
+    ap.add_argument("--lanes", type=int, default=None, choices=LANES,
+                    help="lanes per job of every scores mode's instance "
+                         "(default: each wrapper's)")
     a = ap.parse_args(argv)
     run_modes(a.modes or ["base", "inter2", "inter4"], a.device, a.n,
-              parse_ablate(os.environ.get("DP_ABLATE", "")))
+              parse_ablate(os.environ.get("DP_ABLATE", "")), lanes=a.lanes)
     return 0
 
 
