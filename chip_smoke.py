@@ -59,12 +59,18 @@ It drives the port only (never jax, never trust4_tpu):
    2 and 4 ranks, ``_final.out`` byte-identical; every rank must launch
    the part's kernel, and a failing rank fails the script;
 9. dirs phase: the traceback-bits path (``ops/dp_dirs.dirs_counts``: the
-   dirs kernel, then the decoder) at each tier's full chunk (launches
-   counted from 0 around it); the kernel's scores and whole (N, P, W)
-   bits tensor bit-equal to its plain version, the decoded counts equal
-   to the counts kernel's and to the native DP on a sample; the mixed
-   scores batch at W=32 with its out-of-tile rows at -2^29; medians of
-   the kernel, the plain version and the decoder beside the bound;
+   dirs kernel, then the decoder kernel) at each tier's full chunk
+   (launches of both counted from 0 around it); per tier the kernel's
+   scores and whole (N, P, W) bits tensor bit-equal to its plain version,
+   the decoder kernel's counts equal to the plain decoder's, the counts
+   kernel's and the native DP's on a sample; every (W, L) instance of the
+   dirs kernel bit-equal to its plain version on each tier's chunk, a
+   partial and a small batch, the mixed scores batch at W=32 (its
+   out-of-tile rows at -2^29) and its first 2,000 rows, and 33 ragged
+   jobs at W=24 with an odd p_max, each timed (CUDA-event median and back to back) beside the
+   bound, its SASS per tile cell, registers and spills and the instance
+   the wrapper's table chose; both kernels, the plain versions (the plain
+   decoder in 3 launches) and the counts kernel timed beside the bounds;
 10. lab phase: ``trust4_tpu_torch.tools.dp_kernel_lab`` at the bench shape
    (modes base, inter2, inter4, abl, then abl per DP_ABLATE flag;
    launches counted from 0 around it); then every built instance of the
@@ -107,6 +113,7 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import hashlib
 import io
 import json
 import os
@@ -241,12 +248,15 @@ def _ptxas_usage(log: str) -> dict:
 def _sass_counts(lib: str) -> dict:
     """SASS instructions (cuobjdump) of each kernel instance in a built
     library, keyed by the kernel's name and full template arguments
-    ("dp_inter_kernel<32,4,2>"): ``total`` in the function; ``loop``
+    ("dp_inter_kernel<32,4,2>"): ``total`` in the function; ``sha``, a
+    digest of its instruction text (two builds with the same ``sha``
+    compiled to the same code, instruction for instruction); ``loop``
     inside its widest backward branch (its row loop), where it has one;
     and for the DP kernels ``per_tile_cell`` = loop / the tile cells a
     thread sweeps per row: W for the one-thread kernels, W / L x its jobs
     for the group kernels (_GROUP_KERNELS: <W, L>, <W, L, FLAGS>, and <W,
-    L, G> with G jobs a lane), W being the first template argument.  The
+    L, G> with G jobs a lane; the dirs kernel's <W, L>), W being the first
+    template argument.  The
     DP kernels sweep all their tile cells of a row, so that is what they
     issue per tile cell, beside the operations the function needs per
     band cell (OPS_PER_CELL, SCORE_OPS_PER_CELL, DIRS_OPS_PER_CELL).  The
@@ -266,7 +276,9 @@ def _sass_counts(lib: str) -> dict:
         args = [int(a) for a in key[len(name) + 1:-1].split(",")]
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
-        rec = {"library": library, "total": len(ins)}
+        rec = {"library": library, "total": len(ins),
+               "sha": hashlib.sha256("\n".join(
+                   op for _, op in ins).encode()).hexdigest()[:16]}
         loops = [(int(t, 16), a) for a, op in ins
                  for t in re.findall(r"BRA\s+0x([0-9a-f]+)", op)
                  if int(t, 16) < a]
@@ -275,7 +287,8 @@ def _sass_counts(lib: str) -> dict:
             rec["loop"] = sum(lo <= a <= hi for a, _ in ins)
             if name.startswith("dp_"):
                 jobs = args[2] if name == "dp_inter_kernel" else 1
-                cells = (args[0] // args[1] * jobs if name in _GROUP_KERNELS
+                cells = (args[0] // args[1] * jobs
+                         if name in _GROUP_KERNELS + ("dp_dirs_kernel",)
                          else args[0])
                 rec["per_tile_cell"] = round(rec["loop"] / cells, 2)
             if name in _GROUP_KERNELS:
@@ -332,10 +345,10 @@ def _band_cells(t_lens, p_lens, w: int, p_max: int) -> int:
     return total
 
 
-def _median_ms(fn, n: int) -> float:
+def _median_ms(fn, n: int, warmup: int = 3) -> float:
     """Median over n launches of fn, each between its own CUDA events,
-    after 3 warm-up calls."""
-    for _ in range(3):
+    after ``warmup`` warm-up calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -686,9 +699,26 @@ def _dirs_cells(t_lens, p_lens, w: int, p_max: int) -> int:
     return total
 
 
-def _dirs_record(tag, tc, tl, pc, pl, w, args, max_abs_err) -> dict:
-    """Bound and CUDA-event medians of the dirs kernel and its plain
-    version on one batch (the inputs on the card in args)."""
+# Dirs shapes beside each tier's full chunk (PARTIAL_JOBS, SMALL_JOBS of
+# rand_gap_jobs at the tier's shape) and the mixed scores batch at W=32
+# (and its first SMALL_JOBS rows, the wrapper's small class there): 33
+# ragged jobs at W=24 with an odd p_max, so every job's block of bits
+# is only 8-byte aligned and every L stages a tail of rows past its last
+# full batch.
+DIRS_RAGGED = (33, 37, 24)  # (jobs, cap, band)
+# Operations of the decoder's walk per step, the common diagonal step
+# (dp_decode.cuh): the loop's two tests 3, the band test (k = j - i +
+# left, five compares, four ands) 11, the bits' address with its clamp 4,
+# the state and diag_ok tests 4, the two codes' addresses 2, the match
+# test 5, the count and the two moves 3: 32.
+DECODE_OPS_PER_STEP = 32
+
+
+def _dirs_record(tag, tc, tl, pc, pl, w, args, max_abs_err,
+                 plain: bool = True) -> dict:
+    """Bound and CUDA-event medians of the dirs kernel (the wrapper's
+    launch) and, with plain, its plain version on one batch (the inputs
+    on the card in args)."""
     from trust4_tpu_torch.ops import dp_dirs
     from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
 
@@ -705,20 +735,72 @@ def _dirs_record(tag, tc, tl, pc, pl, w, args, max_abs_err) -> dict:
     rec["max_abs_err"] = max_abs_err
     rec["ms"] = _median_ms(lambda: dp_dirs.banded_affine_dirs(*args, w),
                            N_TIMED)
-    rec["plain_ms"] = _median_ms(lambda: banded_affine_dirs_plain(*args, w),
-                                 N_TIMED)
+    if plain:
+        rec["plain_ms"] = _median_ms(
+            lambda: banded_affine_dirs_plain(*args, w), N_TIMED)
     rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
     return rec
 
 
-def phase_dirs():
+def _dirs_instances(sass, rec, args, want) -> None:
+    """Every built (W, L) instance of the dirs kernel on one batch: its
+    scores and whole (N, P, W) bits tensor bit-equal to the plain
+    version's (want, on the card), then timed (the CUDA-event median of
+    N_TIMED launches and back to back) beside its SASS per tile cell,
+    registers and spills; the instance the wrapper's CHOICE picks, the
+    fastest and the one-thread one on rec."""
+    from trust4_tpu_torch.ops import dp_dirs
+    from trust4_tpu_torch.ops.build import instances
+
+    w, n = rec["w"], rec["n"]
+    recs = {}
+    for ww, lanes in instances("dp_dirs"):
+        if ww != w:
+            continue
+        got = dp_dirs.launch(*args, w, lanes)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("scores", "dirs"), got, want):
+            if not torch.equal(a, b):
+                bad = int((a != b).reshape(len(a), -1).any(1).sum())
+                raise AssertionError(
+                    f"dirs {rec['shape']}: dp_dirs_kernel<{w},{lanes}> "
+                    f"{what} differ from the plain version in {bad} jobs")
+        del got
+        r = {"lanes": lanes}
+        r.update({k: sass[f"dp_dirs_kernel<{w},{lanes}>"].get(k) for k in (
+            "loop", "per_tile_cell", "registers", "spill_stores",
+            "spill_loads")})
+        r["ms"] = _median_ms(lambda: dp_dirs.launch(*args, w, lanes),
+                             N_TIMED)
+        recs[lanes] = r
+    dev_ms = _device_ms([lambda ln=ln: dp_dirs.launch(*args, w, ln)
+                         for ln in recs], N_TIMED)
+    for r, ms in zip(recs.values(), dev_ms):
+        r["device_ms"] = ms
+        r["device_over_bound"] = ms / rec["bound_ms"]
+    chosen = dp_dirs.lanes_for(n, w)
+    rec["instances"] = list(recs.values())
+    rec["chosen_lanes"] = chosen
+    rec["instance"] = f"dp_dirs_kernel<{w},{chosen}>"
+    rec["fastest_lanes"] = min(recs, key=lambda ln: recs[ln]["device_ms"])
+    rec["per_thread_device_ms"] = recs[1]["device_ms"]
+    rec["device_ms"] = recs[chosen]["device_ms"]
+    rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+
+
+def phase_dirs(sass: dict):
     """The traceback-bits path (ops/dp_dirs.dirs_counts: the dirs kernel,
-    then the decoder) at each gap-oracle tier's full chunk, launches
-    counted from 0 around it; then per tier the kernel's scores and whole
-    (N, P, W) bits tensor against the plain version, the decoded counts
-    against the counts kernel and a native sample, and timings; and the
-    mixed scores batch at W=32 with its out-of-tile rows pinned at -2^29.
-    Returns (launches, per-tier records, mixed record)."""
+    then the decoder kernel) at each gap-oracle tier's full chunk,
+    launches of both counted from 0 around it.  Then per tier: the
+    wrapper's scores and whole (N, P, W) bits tensor against the plain
+    version, the decoder kernel's counts against the plain decoder's, the
+    counts kernel's and a native sample, timings of both kernels beside
+    their bounds (the plain decoder timed in 3 launches: about 1.7 s
+    each at tier 2); every dirs instance bit-equal to the plain version
+    and timed on each tier's chunk, a partial chunk and a small batch,
+    the mixed scores batch at W=32 (its out-of-tile rows pinned at
+    -2^29) and its first SMALL_JOBS rows, and DIRS_RAGGED.  Returns (launches by kernel, per-tier
+    records, records of the other shapes)."""
     from trust4_tpu_torch.align.native import global_alignment_counts
     from trust4_tpu_torch.ops import dp_counts, dp_dirs
     from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
@@ -733,29 +815,40 @@ def phase_dirs():
         jobs.append((cap, w, chunk, rng, ts, ps, tc, tl, pc, pl,
                      dp_counts.to_device_jobs(tc, tl, pc, pl, dev)))
     dp_dirs.LAUNCHES = 0
+    dp_dirs.DECODE_LAUNCHES = 0
     outs = [dp_dirs.dirs_counts(*job[-1], job[1]) for job in jobs]
     torch.cuda.synchronize()
-    launches = dp_dirs.LAUNCHES
-    if launches == 0:
-        raise AssertionError("dirs phase: the dirs kernel never launched")
+    launches = {"dp_dirs": dp_dirs.LAUNCHES,
+                "dp_dirs_decode": dp_dirs.DECODE_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"dirs phase: a kernel never launched "
+                             f"{launches}")
 
-    records = []
+    records, kept = [], []
     for (cap, w, chunk, rng, ts, ps, tc, tl, pc, pl, args), (s_path, c_path) \
             in zip(jobs, outs):
         s_k, d_k = dp_dirs.banded_affine_dirs(*args, w)
         s_p, d_p = banded_affine_dirs_plain(*args, w)
         _s, c_counts = dp_counts.banded_affine_counts(*args, w)
+        walked = torch.empty(chunk, dtype=torch.int32, device=dev)
+        c_dec = dp_dirs.decode_launch(d_k, *args, w=w, p_max=cap,
+                                      walked=walked)
+        c_plain = dp_dirs.decode_dirs_counts_plain(d_k, *args, w=w,
+                                                   p_max=cap)
         torch.cuda.synchronize()
         for what, a, b in (("scores", s_k, s_p), ("dirs", d_k, d_p),
                            ("path scores", s_path, s_p),
                            ("decoded counts vs the counts kernel", c_path,
-                            c_counts)):
+                            c_counts),
+                           ("decoder kernel vs the plain decoder", c_dec,
+                            c_plain),
+                           ("decoder kernel vs the path", c_dec, c_path)):
             if not torch.equal(a, b):
                 bad = int((a != b).reshape(len(a), -1).any(1).sum())
                 raise AssertionError(
                     f"dirs tier ({cap},{w},{chunk}): {what} differ in {bad} "
                     "jobs")
-        counts = c_path.cpu().numpy()
+        counts = c_dec.cpu().numpy()
         for i in rng.choice(chunk, N_SAMPLE, replace=False):
             want = ((0, 0, 0) if tl[i] == 0 or pl[i] == 0 else
                     global_alignment_counts(ts[i][: tl[i]], ps[i][: pl[i]]))
@@ -764,56 +857,96 @@ def phase_dirs():
                                      f"{counts[i]} vs native {want}")
         err = int(max((s_k - s_p).abs().max(),
                       (d_k.int() - d_p.int()).abs().max()))
-        del s_k, d_k, s_p, d_p
         rec = _dirs_record(f"tier ({cap},{w},{chunk})", tc, tl, pc, pl, w,
                            args, err)
-        dirs = dp_dirs.banded_affine_dirs(*args, w)[1]
-        rec["decode_steps"] = 2 * (cap + cap) + 4
-        rec["decode_ms"] = _median_ms(
-            lambda: dp_dirs.decode_dirs_counts(dirs, *args, w=w, p_max=cap),
-            N_TIMED)
-        del dirs
+        _dirs_instances(sass, rec, args, (s_p, d_p))
+        del s_k, s_p, d_p
+        # The decoder: its bound from this run's walks (one byte of bits a
+        # step, each job's codes and lengths read once, its counts
+        # written once) and DECODE_OPS_PER_STEP per step walked.
+        steps = int(walked.long().sum())
+        dec_bytes = steps + int(tl.astype(np.int64).sum() +
+                                pl.astype(np.int64).sum()) + 20 * chunk
+        ops_s = steps * DECODE_OPS_PER_STEP / INT32_OPS_PER_S
+        bytes_s = dec_bytes / HBM_BYTES_PER_S
+        rec["decode"] = {
+            "steps_walked": steps, "step_cap": dp_dirs.decode_steps(cap, cap),
+            "longest_walk": int(walked.max()), "bytes": dec_bytes,
+            "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "bytes" if bytes_s > ops_s else "operations",
+            "max_abs_err": int((c_dec - c_plain).abs().max()),
+            "ms": _median_ms(lambda: dp_dirs.decode_dirs_counts(
+                d_k, *args, w=w, p_max=cap), N_TIMED),
+            "plain_ms": _median_ms(lambda: dp_dirs.decode_dirs_counts_plain(
+                d_k, *args, w=w, p_max=cap), 3, warmup=1)}
         rec["counts_kernel_ms"] = _median_ms(
             lambda: dp_counts.banded_affine_counts(*args, w), N_TIMED)
         records.append(rec)
+        kept.append((args, w, cap, d_k))
+
+    others = []
+
+    def other(tag, tc, tl, pc, pl, w):
+        args = dp_counts.to_device_jobs(tc, tl, pc, pl, dev)
+        s_k, d_k = dp_dirs.banded_affine_dirs(*args, w)
+        s_p, d_p = banded_affine_dirs_plain(*args, w)
+        torch.cuda.synchronize()
+        if not (torch.equal(s_k, s_p) and torch.equal(d_k, d_p)):
+            raise AssertionError(f"dirs {tag}: the wrapper differs from the "
+                                 "plain version")
+        err = int(max((s_k - s_p).abs().max(),
+                      (d_k.int() - d_p.int()).abs().max()))
+        rec = _dirs_record(tag, tc, tl, pc, pl, w, args, err,
+                           plain=tag == "mixed")
+        _dirs_instances(sass, rec, args, (s_p, d_p))
+        others.append(rec)
+        return rec, args, s_k
+
+    for cap, w, chunk in _TIERS:
+        for kind, n in (("partial", PARTIAL_JOBS[w]), ("small", SMALL_JOBS)):
+            rng = np.random.default_rng(3000 + cap + n)
+            _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, n, cap, w)
+            other(f"{kind} ({cap},{w},{n})", tc, tl, pc, pl, w)
+    n, cap, w = DIRS_RAGGED
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(np.random.default_rng(3033), n,
+                                             cap, w)
+    other(f"ragged ({cap},{w},{n})", tc, tl, pc, pl, w)
 
     tc, tl, pc, pl = _score_inputs("mixed")
     w = 32
-    args = dp_counts.to_device_jobs(tc, tl, pc, pl, dev)
-    s_k, d_k = dp_dirs.banded_affine_dirs(*args, w)
-    s_p, d_p = banded_affine_dirs_plain(*args, w)
-    torch.cuda.synchronize()
-    if not (torch.equal(s_k, s_p) and torch.equal(d_k, d_p)):
-        raise AssertionError("dirs mixed: kernel differs from the plain "
-                             "version")
+    other(f"small mixed (152,32,{SMALL_JOBS})",
+          *(a[:SMALL_JOBS] for a in (tc, tl, pc, pl)), w)
+    mixed, _args, s_k = other("mixed", tc, tl, pc, pl, w)
     k_final = tl.astype(np.int64) - pl + np.where(tl < pl, 5 + (pl - tl), 5)
     off = (k_final < 0) | (k_final >= w)
     got = s_k.cpu().numpy()
     if not off.any() or (got[off] != -(1 << 29)).any() \
             or (got[~off] == -(1 << 29)).any():
         raise AssertionError("dirs mixed: out-of-tile rows not at -2^29")
-    err = int(max((s_k - s_p).abs().max(),
-                  (d_k.int() - d_p.int()).abs().max()))
-    del s_k, d_k, s_p, d_p
-    mixed = _dirs_record("mixed", tc, tl, pc, pl, w, args, err)
     mixed["out_of_tile_rows"] = int(off.sum())
 
-    # Back-to-back device times: per tier the dirs and the counts kernel,
-    # then the dirs kernel on the mixed batch.
+    # Back-to-back device times of the counts kernel and the decoder
+    # kernel per tier (the dirs kernel's are its instances').
     calls = []
-    for job in jobs:
-        calls += [lambda a=job[-1], w=job[1]: dp_dirs.banded_affine_dirs(*a, w),
-                  lambda a=job[-1], w=job[1]:
-                  dp_counts.banded_affine_counts(*a, w)]
-    calls.append(lambda: dp_dirs.banded_affine_dirs(*args, w))
+    for args, w, cap, dirs in kept:
+        calls += [lambda a=args, w=w: dp_counts.banded_affine_counts(*a, w),
+                  lambda a=args, w=w, c=cap, d=dirs:
+                  dp_dirs.decode_dirs_counts(d, *a, w=w, p_max=c)]
     dev_ms = _device_ms(calls, N_TIMED)
     for i, rec in enumerate(records):
-        rec["device_ms"] = dev_ms[2 * i]
-        rec["counts_kernel_device_ms"] = dev_ms[2 * i + 1]
+        rec["counts_kernel_device_ms"] = dev_ms[2 * i]
+        rec["decode"]["device_ms"] = dev_ms[2 * i + 1]
         print(f"dirs tier {json.dumps(rec)}", flush=True)
-    mixed["device_ms"] = dev_ms[-1]
-    print(f"dirs mixed {json.dumps(mixed)}", flush=True)
-    return launches, records, mixed
+    for rec in others:
+        print(f"dirs {rec['shape'].split()[0]} {json.dumps(rec)}", flush=True)
+    print("dirs instances (device ms back to back, per shape; * the "
+          "wrapper's choice):", flush=True)
+    for rec in records + others:
+        cells = [f"L={r['lanes']}{'*' if r['lanes'] == rec['chosen_lanes'] else ''} "
+                 f"{r['device_ms']:.4f}" for r in rec["instances"]]
+        print(f"  {rec['shape']:<24} bound {rec['bound_ms']:.4f}  "
+              + "  ".join(cells), flush=True)
+    return launches, records, others
 
 
 def phase_lab(scores_bench: dict, sass: dict):
@@ -2066,7 +2199,7 @@ def main() -> int:
         prewarm["ranks"] = ranks["prewarm_launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    dirs_launches, dirs_tiers, dirs_mixed = phase_dirs()
+    dirs_launches, dirs_tiers, dirs_others = phase_dirs(sass)
     lab = phase_lab(shapes[1], sass)
     mb_launches, mb_cases = phase_microbench(sass)
 
@@ -2119,29 +2252,55 @@ def main() -> int:
                                                      "cells_per_s")}
                    for r in shapes],
     }]
-    # The dirs kernel's top tier (its heaviest launch; every tier and the
-    # mixed batch are in "shapes"); the lab kernels at the bench shape;
-    # the microbenchmark's dependent max+add chain at (32, 128) (every
-    # case is in "cases").
+    # The dirs kernel's and its decoder's top tier (the heaviest launches;
+    # every tier and every other shape are in "shapes", each with every
+    # instance's times); the lab kernels at the bench shape; the
+    # microbenchmark's dependent max+add chain at (32, 128) (every case is
+    # in "cases").
     top = dirs_tiers[-1]
+    dirs_shape = ("shape", "n", "w", "instance", "chosen_lanes",
+                  "fastest_lanes", "ms", "device_ms", "per_thread_device_ms",
+                  "plain_ms", "bound_ms", "bound_by", "counts_kernel_ms",
+                  "counts_kernel_device_ms")
     kernels.append({
         "name": "dp_dirs",
         "route": "cuda",
         "source": "trust4_tpu_torch/csrc/dp_dirs.cu",
         "replaces": "trust4_tpu/ops/dp_pallas.py:385",
-        "launches": dirs_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in dirs_tiers + [dirs_mixed]),
+        "launches": dirs_launches["dp_dirs"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in dirs_tiers + dirs_others),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
         "device_ms": top["device_ms"],
-        "decode_ms": top["decode_ms"],
-        "shapes": [{k: r.get(k) for k in (
-            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "decode_ms", "counts_kernel_ms", "counts_kernel_device_ms")}
-            for r in dirs_tiers + [dirs_mixed]],
+        "instance": top["instance"],
+        "lanes": top["chosen_lanes"],
+        "instances": top["instances"],
+        "decode_ms": top["decode"]["ms"],
+        "decode_device_ms": top["decode"]["device_ms"],
+        "shapes": [dict({k: r.get(k) for k in dirs_shape},
+                        instances={i["lanes"]: i["device_ms"]
+                                   for i in r["instances"]})
+                   for r in dirs_tiers + dirs_others],
+    })
+    dec = top["decode"]
+    kernels.append({
+        "name": "dp_dirs_decode",
+        "route": "cuda",
+        "source": "trust4_tpu_torch/csrc/dp_decode.cu",
+        "replaces": "trust4_tpu/ops/dp_pallas.py:583",
+        "launches": dirs_launches["dp_dirs_decode"],
+        "max_abs_err": max(r["decode"]["max_abs_err"] for r in dirs_tiers),
+        "ms": dec["ms"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"],
+        "library_ms": None,
+        "device_ms": dec["device_ms"],
+        "tiers": [dict(r["decode"], shape=r["shape"]) for r in dirs_tiers],
     })
     for name in ("inter2", "inter4", "abl"):
         r = lab[name]

@@ -116,7 +116,11 @@ def test_scores_instances_match_plain(card, shape):
 def test_choice_tables_name_exported_instances(card):
     from trust4_tpu_torch.ops.build import instances
 
-    for mod, name in ((dp_counts, "dp_counts"), (dp_scores, "dp_scores")):
+    from trust4_tpu_torch.ops import dp_dirs
+
+    assert instances("dp_dirs") == list(dp_dirs.INSTANCES)
+    for mod, name in ((dp_counts, "dp_counts"), (dp_scores, "dp_scores"),
+                      (dp_dirs, "dp_dirs")):
         built = set(instances(name))
         assert {w for w, _ in built} == set(mod.BANDS)
         for (w, _cls), lanes in mod.CHOICE.items():
@@ -240,14 +244,84 @@ def test_dirs_kernel_matches_plain_and_counts(card, cap, w):
     rng = np.random.default_rng(900 + cap)
     _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, 2000, cap, w)
     args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
-    launches = dp_dirs.LAUNCHES
+    launches = (dp_dirs.LAUNCHES, dp_dirs.DECODE_LAUNCHES)
     s_k, c_k = dp_dirs.dirs_counts(*args, w)
     torch.cuda.synchronize()
-    assert dp_dirs.LAUNCHES == launches + 1
+    assert (dp_dirs.LAUNCHES, dp_dirs.DECODE_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
     s_p, d_p = banded_affine_dirs_plain(*args, w)
     _s, d_k = dp_dirs.banded_affine_dirs(*args, w)
     assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
     assert torch.equal(c_k, dp_counts.banded_affine_counts(*args, w)[1])
+
+
+@pytest.mark.parametrize("cap,w,n", [(144, 48, 3000), (37, 24, 33)])
+def test_dirs_instances_match_plain(card, cap, w, n):
+    """Every dirs instance the library exports and the wrapper's choice,
+    at a tier shape and at 33 ragged jobs with an odd p_max (blocks of
+    bits only 8-byte aligned, a tail of rows at every L): scores and the
+    whole (N, P, W) bits tensor bit-equal to the plain version."""
+    from trust4_tpu_torch.ops import dp_dirs
+    from trust4_tpu_torch.ops.build import instances
+    from trust4_tpu_torch.ops.dp import banded_affine_dirs_plain
+
+    rng = np.random.default_rng(9100 + n)
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, n, cap, w)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    want = banded_affine_dirs_plain(*args, w)
+    lanes = [ln for ww, ln in instances("dp_dirs") if ww == w]
+    assert dp_dirs.lanes_for(n, w) in lanes
+    for ln in lanes + [None]:
+        got = dp_dirs.banded_affine_dirs(*args, w, lanes=ln)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ln
+
+
+@pytest.mark.parametrize("cap,w", [(16, 16), (48, 24), (144, 48)])
+def test_decoder_kernel_matches_plain_and_counts(card, cap, w):
+    """The decoder kernel's counts equal the plain decoder's on the same
+    bits and the counts kernel's (#1) on the same jobs."""
+    from trust4_tpu_torch.ops import dp_dirs
+
+    rng = np.random.default_rng(9200 + cap)
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(rng, 2000, cap, w)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    _s, dirs = dp_dirs.banded_affine_dirs(*args, w)
+    launches = dp_dirs.DECODE_LAUNCHES
+    got = dp_dirs.decode_dirs_counts(dirs, *args, w=w, p_max=cap)
+    torch.cuda.synchronize()
+    assert dp_dirs.DECODE_LAUNCHES == launches + 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got, dp_dirs.decode_dirs_counts_plain(
+        dirs, *args, w=w, p_max=cap))
+    assert torch.equal(got, dp_counts.banded_affine_counts(*args, w)[1])
+
+
+def test_dirs_launch_failures_raise(card, monkeypatch):
+    """A failed launch of either kernel raises; nothing falls back to the
+    plain version or the CPU."""
+    from trust4_tpu_torch.ops import build, dp_dirs
+
+    _ts, _ps, tc, tl, pc, pl = rand_gap_jobs(np.random.default_rng(9300),
+                                             64, 16, 16)
+    args = dp_counts.to_device_jobs(tc, tl, pc, pl, card)
+    _s, dirs = dp_dirs.banded_affine_dirs(*args, 16)
+
+    class Failing:
+        def t4_dp_dirs(self, *a):
+            return 719  # cudaErrorLaunchFailure
+
+        t4_dp_decode = t4_dp_dirs
+
+    monkeypatch.setattr(build, "load", lambda name: Failing())
+    launches = (dp_dirs.LAUNCHES, dp_dirs.DECODE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="t4_dp_decode launch failed"):
+        dp_dirs.decode_dirs_counts(dirs, *args, w=16, p_max=16)
+    with pytest.raises(RuntimeError, match="t4_dp_dirs launch failed"):
+        dp_dirs.banded_affine_dirs(*args, 16)
+    with pytest.raises(RuntimeError, match="t4_dp_dirs launch failed"):
+        dp_dirs.dirs_counts(*args, 16)
+    assert (dp_dirs.LAUNCHES, dp_dirs.DECODE_LAUNCHES) == launches
 
 
 def test_lab_kernels_match_plain(card):

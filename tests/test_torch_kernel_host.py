@@ -1,13 +1,15 @@
 """The CUDA kernels' arithmetic, run on the CPU.
 
 csrc/dp_counts.cuh, csrc/dp_scores.cuh and csrc/dp_dirs.cuh hold the
-per-job DP of the counts, scores and dirs kernels as ``__host__
-__device__`` code with no CUDA headers.  g++ builds them here, with both
+per-job DP of the counts, scores and dirs kernels, one thread a job, as
+``__host__ __device__`` code with no CUDA headers: the sequential models
+of the kernels' lane-group sweeps.  g++ builds them here, with both
 qualifiers defined empty, into a small host library; each per-job
 function must equal its plain PyTorch version (and so the JAX package)
 bit for bit: the counts in both epilogues and the whole dirs tensor.
 The group sweeps built on these headers run in tests/test_torch_dp_group.py
-(kernels #1, #3) and tests/test_torch_dp_lab_group.py (the lab's kernels).
+(kernels #1, #3), tests/test_torch_dp_lab_group.py (the lab's kernels) and
+tests/test_torch_dp_dirs_group.py (kernel #4 and its decoder).
 """
 
 import ctypes
@@ -267,12 +269,20 @@ def test_dirs_header_matches_plain(host_lib, cap, w):
 
 
 def test_new_cuda_sources_include_the_tested_headers():
-    for src, calls in (("dp_dirs.cu", ["t4dp::dp_dirs_job<W>"]),
-                       ("dp_lab.cu", ["t4dp::dp_inter_narrow<W, L, G>",
-                                      "t4dp::dp_scores_narrow<W, L, FLAGS>",
-                                      "CudaLanes<L>"])):
+    """Each CUDA source runs the header its CPU tests build: the dirs
+    kernel's group sweep and the decoder's walk
+    (tests/test_torch_dp_dirs_group.py), the lab's kernels
+    (tests/test_torch_dp_lab_group.py)."""
+    for src, header, calls in (
+            ("dp_dirs.cu", "dp_dirs_group.cuh",
+             ["t4dp::dp_dirs_group<W, L>", "CudaLanes<L>"]),
+            ("dp_decode.cu", "dp_decode.cuh",
+             ["t4dp::decode_dirs_job<W>"]),
+            ("dp_lab.cu", "dp_lab.cuh",
+             ["t4dp::dp_inter_narrow<W, L, G>",
+              "t4dp::dp_scores_narrow<W, L, FLAGS>", "CudaLanes<L>"])):
         with open(os.path.join(CSRC_DIR, src)) as f:
             text = f.read()
-        assert f'#include "{src}h"' in text
+        assert f'#include "{header}"' in text
         for call in calls:
             assert call in text, (src, call)

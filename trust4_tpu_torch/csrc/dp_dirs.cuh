@@ -1,5 +1,7 @@
 // Banded affine-gap global DP with traceback decision bits: the arithmetic
-// of one job, shared by the CUDA kernel (dp_dirs.cu) and a host build.
+// of one job in one thread, the sequential model of the CUDA kernel's
+// lane-group sweep (dp_dirs_group.cuh, which must equal it bit for bit)
+// and run in a host build by the CPU tests.
 //
 // Replaces the Pallas kernel _dp_dirs_kernel
 // (trust4_tpu/ops/dp_pallas.py:385-489) and its XLA mirror
@@ -22,9 +24,11 @@
 // mixed lengths.
 //
 // Band coordinates: cell k in [0, W) of row i is column j = i - left + k.
-// One thread owns one job and sweeps each row left to right (the in-row F
-// max is a running scalar); a row's W bit bytes are packed into W/8
-// 64-bit words and written with W/8 eight-byte stores.
+// One thread sweeps each row left to right (the in-row F max is a running
+// scalar); a row's W bit bytes are packed into W/8 64-bit words and
+// written with W/8 eight-byte stores.  The kernel spreads the row over a
+// group of lanes and stages the bits in shared memory instead
+// (dp_dirs.cu).
 //
 // The header needs no CUDA headers: compiled by g++ with __host__ and
 // __device__ defined empty, it runs the same arithmetic on the CPU (the

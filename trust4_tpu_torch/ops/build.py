@@ -46,7 +46,12 @@ _SIGNATURES = {
         "t4_dp_scores_instances": ([_VP, _CI], _CI),
     },
     "dp_dirs": {
-        "t4_dp_dirs": ([_VP] * 4 + [_CI] * 4 + [_VP] * 3, _CI),
+        "t4_dp_dirs": ([_VP] * 4 + [_CI] * 5 + [_VP] * 3, _CI),
+        "t4_dp_dirs_instances": ([_VP, _CI], _CI),
+    },
+    "dp_decode": {
+        "t4_dp_decode": ([_VP, _CI] + [_VP] * 4 + [_CI] * 6 + [_VP] * 3,
+                         _CI),
     },
     "dp_lab": {
         "t4_dp_inter": ([_VP] * 5 + [_CI] * 6 + [_VP] * 2, _CI),

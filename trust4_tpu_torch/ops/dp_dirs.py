@@ -1,38 +1,75 @@
 """The traceback-bits form of the gap-fill DP: the dirs kernel
-(csrc/dp_dirs.cu) and the batched traceback decoder.
+(csrc/dp_dirs.cu) and the decoder kernel (csrc/dp_decode.cu).
 
 ``banded_affine_dirs`` replaces trust4_tpu's ``banded_affine_dirs_pallas``
 (the Pallas kernel ``_dp_dirs_kernel``, trust4_tpu/ops/dp_pallas.py:385)
 and its XLA mirror ``banded_affine_dirs_xla``: a CPU tensor runs the plain
 PyTorch version (ops/dp.py ``banded_affine_dirs_plain``); a CUDA tensor
 launches the CUDA kernel on the current stream or raises.  It never falls
-back from one to the other.
+back from one to the other.  The kernel spreads each job's band over a
+group of L lanes (csrc/dp_dirs_group.cuh); it is built for every L in
+``LANES`` that divides a band width (``INSTANCES``), and ``CHOICE`` picks
+the one launched by band width and batch size, from chip_smoke.py's
+timings of every instance (PERF.md).  The jobs keep their input order.
 
-``decode_dirs_counts`` is the port of the JAX package's batched DFA walker
-(dp_pallas.py:583-725, an XLA program): a torch program on the inputs'
-device that replays the reference traceback over the bits and returns
-each job's (match, mismatch, indel) counts.  ``dirs_counts`` chains the
-two at the gap oracle's tier shapes.  The oracle itself uses the forward
-counts kernel (ops/dp_counts.py), which replaced this pair in the JAX
-package; the pair stays as ops API, as it does there.
+``decode_dirs_counts`` replaces the JAX package's batched DFA walker
+(dp_pallas.py:583-725, an XLA program) the same way: the decoder kernel
+on a CUDA tensor, ``decode_dirs_counts_plain`` (a torch loop over the
+walk's steps) on a CPU tensor.  ``dirs_counts`` chains the two.  The gap
+oracle itself uses the forward counts kernel (ops/dp_counts.py), which
+replaced this pair in the JAX package; the pair stays as ops API, as it
+does there.
 """
 
 from __future__ import annotations
 
 import torch
 
+from trust4_tpu_torch.ops import dp_counts, dp_scores
 from trust4_tpu_torch.ops.dp import (
     SCORE_GAPEXTEND,
     SCORE_GAPOPEN,
     _CODE_N,
     banded_affine_dirs_plain,
 )
-# The kernel is compiled for the scores kernel's band widths (BANDS) and
-# takes the same inputs.
-from trust4_tpu_torch.ops.dp_scores import _check
 
-# Kernel launches made by this process (one per call on a CUDA tensor).
+# The kernels are compiled for the scores kernel's band widths and take
+# the same inputs.
+BANDS = dp_scores.BANDS
+LANES = (1, 4, 8, 16)
+# The (band width, lanes) instances the dirs kernel is built for
+# (csrc/dp_dirs_group.cuh T4DP_DIRS_INSTANCES).
+INSTANCES = tuple((w, ln) for w in BANDS for ln in LANES if w % ln == 0)
+
+# Kernel launches made by this process (one per call on a CUDA tensor):
+# the dirs kernel's and the decoder kernel's.
 LAUNCHES = 0
+DECODE_LAUNCHES = 0
+
+# Lanes per job of the dirs instance launched, by (band width, class):
+# the gap-oracle tiers' widths classed as the counts kernel classes them
+# (dp_counts.job_class), W = 32 as the scores kernel does
+# (dp_scores.job_class).  Each is the fastest back-to-back device time of
+# every instance at chip_smoke.py's dirs shapes (PERF.md, section 6): one
+# lane per job wins the full chunks of tiers 0 and 1 and the mixed W=32
+# batch, four lanes tier 2's chunks, eight or sixteen the small ones.
+CHOICE = {
+    (16, "small"): 16, (16, "partial"): 1, (16, "chunk"): 1,
+    (24, "small"): 8, (24, "partial"): 8, (24, "chunk"): 1,
+    (32, "small"): 16, (32, "large"): 1,
+    (48, "small"): 16, (48, "partial"): 4, (48, "chunk"): 4,
+}
+
+
+def job_class(n: int, band_width: int) -> str:
+    if band_width in dp_counts.FULL_CHUNK:
+        return dp_counts.job_class(n, band_width)
+    return dp_scores.job_class(n)
+
+
+def lanes_for(n: int, band_width: int) -> int:
+    """Lanes per job of the instance the wrapper launches for n jobs."""
+    return CHOICE[(band_width, job_class(n, band_width))]
 
 
 def banded_affine_dirs(
@@ -41,19 +78,33 @@ def banded_affine_dirs(
     p_codes: torch.Tensor,  # (N, P) int8
     p_lens: torch.Tensor,  # (N,) int32
     band_width: int,
+    lanes: int = None,
 ):
     """(scores (N,) int32, dirs (N, P, W) int8), as
     banded_affine_dirs_plain (-2^29 where the final cell lies outside the
-    tile)."""
-    global LAUNCHES
+    tile).  lanes: the instance to launch (None: ``lanes_for``); one not
+    built raises, on a CPU tensor too."""
     if t_codes.dim() != 2:
         raise ValueError("t_codes must be (N, T)")
+    if lanes is not None and (band_width, lanes) not in INSTANCES:
+        raise ValueError(f"the dirs kernel is not built for L={lanes} at "
+                         f"W={band_width}: {INSTANCES}")
     if t_codes.device.type == "cpu":
         return banded_affine_dirs_plain(t_codes, t_lens, p_codes, p_lens,
                                         band_width)
     if t_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {t_codes.device}")
-    _check(t_codes, t_lens, p_codes, p_lens, band_width)
+    dp_scores._check(t_codes, t_lens, p_codes, p_lens, band_width)
+    if lanes is None:
+        lanes = lanes_for(t_codes.shape[0], band_width)
+    return launch(t_codes, t_lens, p_codes, p_lens, band_width, lanes)
+
+
+def launch(t_codes, t_lens, p_codes, p_lens, band_width: int, lanes: int):
+    """One launch of the (band_width, lanes) instance on inputs that
+    passed the checks.  The wrapper's own path; chip_smoke.py calls it to
+    check and time every instance."""
+    global LAUNCHES
     n, p_max = t_codes.shape[0], p_codes.shape[1]
     dev = t_codes.device
     scores = torch.empty(n, dtype=torch.int32, device=dev)
@@ -68,7 +119,7 @@ def banded_affine_dirs(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.t4_dp_dirs(
             t_codes.data_ptr(), t_lens.data_ptr(), p_codes.data_ptr(),
-            p_lens.data_ptr(), n, t_codes.shape[1], p_max, band_width,
+            p_lens.data_ptr(), n, t_codes.shape[1], p_max, band_width, lanes,
             scores.data_ptr(), dirs.data_ptr(), stream,
         )
     if rc != 0:
@@ -77,9 +128,71 @@ def banded_affine_dirs(
     return scores, dirs
 
 
+def decode_steps(p_max: int, t_max: int) -> int:
+    """The walk's cap: the XLA program's fixed step count, enough for
+    every job of a tier (each step emits an operation or moves the DFA)."""
+    return 2 * (p_max + t_max) + 4
+
+
 def decode_dirs_counts(dirs, t_codes, t_lens, p_codes, p_lens, *, w, p_max):
     """dirs (N, P, W) int8 from banded_affine_dirs; returns (N, 3) int32
-    (match, mismatch, indel) counts of the decoded edit scripts.
+    (match, mismatch, indel) counts of the decoded edit scripts: the
+    decoder kernel on a CUDA tensor (or a raise), decode_dirs_counts_plain
+    on a CPU tensor."""
+    if dirs.device.type == "cpu":
+        return decode_dirs_counts_plain(dirs, t_codes, t_lens, p_codes,
+                                        p_lens, w=w, p_max=p_max)
+    if dirs.device.type != "cuda":
+        raise ValueError(f"unsupported device {dirs.device}")
+    return decode_launch(dirs, t_codes, t_lens, p_codes, p_lens, w=w,
+                         p_max=p_max)
+
+
+def decode_launch(dirs, t_codes, t_lens, p_codes, p_lens, *, w, p_max,
+                  walked=None):
+    """One launch of the decoder kernel on CUDA tensors: (N, 3) int32
+    counts; walked, an (N,) int32 tensor on the card or None, receives
+    each job's steps walked."""
+    global DECODE_LAUNCHES
+    n = dirs.shape[0]
+    dp_scores._check(t_codes, t_lens, p_codes, p_lens, w)
+    if dirs.dtype != torch.int8 or not dirs.is_contiguous():
+        raise TypeError("dirs must be a contiguous int8 tensor")
+    if dirs.device != t_codes.device or t_codes.shape[0] != n:
+        raise ValueError("dirs and the codes must be (N, ...) on one device")
+    stride = dirs.numel() // n if n else 0
+    if n and p_max * w > stride:
+        raise ValueError(f"p_max*w = {p_max * w} beyond the dirs tensor")
+    if walked is not None and (walked.shape != (n,) or
+                               walked.dtype != torch.int32 or
+                               walked.device != dirs.device):
+        raise ValueError("walked must be (N,) int32 on the card")
+    counts = torch.empty((n, 3), dtype=torch.int32, device=dirs.device)
+    if n == 0:
+        return counts
+
+    from trust4_tpu_torch.ops.build import load
+
+    lib = load("dp_decode")
+    with torch.cuda.device(dirs.device):
+        stream = torch.cuda.current_stream(dirs.device).cuda_stream
+        rc = lib.t4_dp_decode(
+            dirs.data_ptr(), stride, t_codes.data_ptr(),
+            t_lens.data_ptr(), p_codes.data_ptr(), p_lens.data_ptr(), n,
+            t_codes.shape[1], p_codes.shape[1], p_max, w,
+            decode_steps(p_max, t_codes.shape[1]), counts.data_ptr(),
+            None if walked is None else walked.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"t4_dp_decode launch failed: cudaError {rc}")
+    DECODE_LAUNCHES += 1
+    return counts
+
+
+def decode_dirs_counts_plain(dirs, t_codes, t_lens, p_codes, p_lens, *, w,
+                             p_max):
+    """The decoder's plain version: (N, 3) int32 (match, mismatch, indel)
+    counts of the edit scripts decoded from dirs (N, P, W) int8.
 
     A line-for-line port of trust4_tpu's ``decode_dirs_counts``: each job
     walks back from (p_len, t_len) through the DFA states M (0), insert
@@ -147,8 +260,7 @@ def decode_dirs_counts(dirs, t_codes, t_lens, p_codes, p_lens, *, w, p_max):
     mat, cm, cmm, cind = z, z, z, z
     # each iteration emits >= 1 op or transitions the DFA; 2*(P+T)+4 bounds
     # the walk for every job in the tier
-    steps = 2 * (p_max + tmax) + 4
-    for _ in range(steps):
+    for _ in range(decode_steps(p_max, tmax)):
         active = (ti > 0) | (tj > 0)
         ib = in_band(ti, tj)
         bits = where(ib, bits_at(ti, tj), zero)
@@ -213,8 +325,8 @@ def decode_dirs_counts(dirs, t_codes, t_lens, p_codes, p_lens, *, w, p_max):
 
 def dirs_counts(t_codes, t_lens, p_codes, p_lens, band_width):
     """(scores (N,), counts (N, 3)) int32 through the traceback-bits path:
-    the dirs kernel (or its plain version on a CPU tensor), then the
-    decoder on the same device.  The counts equal the forward counts
+    the dirs kernel, then the decoder kernel, on the card (their plain
+    versions on a CPU tensor).  The counts equal the forward counts
     kernel's (ops/dp_counts.py) on the same jobs."""
     scores, dirs = banded_affine_dirs(t_codes, t_lens, p_codes, p_lens,
                                       band_width)
