@@ -97,7 +97,13 @@ It drives the port only (never jax, never trust4_tpu):
    scale corpus with TRUST4_TPU_DEVICE_TIMEOUT_S=1 in a fresh process
    (byte-identical to the scale phase's TRUST4_TPU_DEVICE=0 run) and, in
    child processes, the hang hooks, which must raise GapDeviceTimeout
-   within their deadlines and exit non-zero.
+   within their deadlines and exit non-zero;
+13. bench phase: ``python -m trust4_tpu_torch.bench --reads 100000`` in
+   a subprocess with T4BENCH_SCALE=0 and T4BENCH_BARCODED=0 (the bulk
+   A/B, the import wall, extraction reads/s, kernel #3's sustained rate
+   and the host-input and tier-2 launches); it must exit 0 with every
+   timed run held byte-identical to its first TRUST4_TPU_DEVICE=0 run
+   and end with bench.py's JSON line; its lines are printed.
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
@@ -165,6 +171,7 @@ N_TIMED = 15
 N_SAMPLE = 2000
 SCALE_READS = 500_000
 PREFILTER_READS = 20_000
+BENCH_READS = 100_000
 
 
 def card_line() -> str:
@@ -2164,6 +2171,38 @@ def phase_modes(work: str, coord: str, imgt: str, coord_bam: str) -> dict:
     return launches, deadline["deadline_run"]["prewarm_launches"]
 
 
+def phase_bench(work: str) -> dict:
+    """The port's bench (trust4_tpu_torch/bench.py) in a subprocess, the
+    scale and barcoded parts gated off: exit 0, every timed bulk run held
+    (2 configs x 2 rounds x 2 thread counts, each against the first
+    TRUST4_TPU_DEVICE=0 run), bench.py's four keys last.  Returns its
+    record."""
+    record = os.path.join(work, "bench.json")
+    env = dict(os.environ, T4BENCH_SCALE="0", T4BENCH_BARCODED="0")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "trust4_tpu_torch.bench", "--reads",
+         str(BENCH_READS), "--record", record],
+        capture_output=True, text=True, timeout=900, cwd=REPO, env=env)
+    wall = time.perf_counter() - t0
+    for line in (r.stderr + r.stdout).splitlines():
+        print(f"bench | {line}", flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"bench phase: exited {r.returncode}")
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    if set(last) != {"metric", "value", "unit", "vs_baseline"}:
+        raise AssertionError(f"bench phase: last line {last}")
+    with open(record) as f:
+        rec = json.load(f)
+    if rec["bulk"]["held"] != 7:
+        raise AssertionError(f"bench phase: {rec['bulk']['held']} of 8 runs "
+                             "held")
+    print(f"bench: exit 0 in {wall:.1f}s, 7 of 8 timed bulk runs held "
+          f"byte-identical to the first TRUST4_TPU_DEVICE=0 run; {last}",
+          flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2197,6 +2236,7 @@ def main() -> int:
         mode_launches, prewarm["deadline"] = phase_modes(work, coord, imgt,
                                                          coord_bam)
         prewarm["ranks"] = ranks["prewarm_launches"]
+        phase_bench(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dirs_launches, dirs_tiers, dirs_others = phase_dirs(sass)

@@ -30,7 +30,7 @@ def test_every_module_imports_without_jax_or_trust4_tpu():
               "pipeline.run", "tools", "tools.dp_kernel_lab",
               "tools.vpu_microbench", "ops.gap_oracle", "utils.parallel",
               "pipeline.smartseq", "pipeline.bam_extract", "io.bam_native",
-              "testing", "cli"):
+              "testing", "cli", "bench"):
         assert "trust4_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
