@@ -103,7 +103,15 @@ It drives the port only (never jax, never trust4_tpu):
    A/B, the import wall, extraction reads/s, kernel #3's sustained rate
    and the host-input and tier-2 launches); it must exit 0 with every
    timed run held byte-identical to its first TRUST4_TPU_DEVICE=0 run
-   and end with bench.py's JSON line; its lines are printed.
+   and end with bench.py's JSON line; its lines are printed;
+14. fuzz phase: ``trust4_tpu_torch.tools.fuzz_differential`` in this
+   process on the card at the JAX harnesses' sizes: bulk seeds 9000-9031
+   and 9041 at -t 1, 9032-9039 at -t 8, barcoded seeds 9000-9015 at -t 1
+   and at -t 8, and bulk 9000-9003 with TRUST4_TPU_DEVICE_CHECK=1; each seed in the
+   shipping mode (launches counted from 0 around it) against
+   TRUST4_TPU_DEVICE=0, every file byte-identical (report tables
+   sorted); #1 must launch; it prints each seed's line, the modes drawn,
+   the jobs beyond the top tier per mode, the walls and the card.
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
@@ -2203,6 +2211,81 @@ def phase_bench(work: str) -> dict:
     return rec
 
 
+# Fuzz phase parts (kind, seeds, threads, check): the JAX harnesses' own
+# seed ranges and corpus sizes.  Seeds 9000-9039 draw no repseq corpus,
+# so the first seed from 9000 up that does (9041, the one
+# tests/test_torch_fuzz.py runs) is added, chosen by its mode.  The
+# native collect's row order depends on the threads, hence the -t 8
+# parts (at -t 8 the barcoded k-mer pass also spreads the barcodes over
+# threads).
+FUZZ_PARTS = (("bulk", tuple(range(9000, 9032)) + (9041,), 1, False),
+              ("bulk", tuple(range(9032, 9040)), 8, False),
+              ("barcoded", tuple(range(9000, 9016)), 1, False),
+              ("barcoded", tuple(range(9000, 9016)), 8, False),
+              ("bulk", tuple(range(9000, 9004)), 1, True))
+
+
+def phase_fuzz(work: str, coord: str, imgt: str, card: str) -> dict:
+    """trust4_tpu_torch.tools.fuzz_differential in this process on the
+    card: every seed of ``FUZZ_PARTS`` in the shipping mode (launches
+    counted from 0 around each run, the prewarm joined before) against
+    TRUST4_TPU_DEVICE=0, every file byte-identical (report tables
+    sorted); raises on any mismatch and unless #1 launched.  Prints each
+    seed's line, the modes drawn, the jobs beyond the top tier per mode,
+    the walls and the card."""
+    from trust4_tpu_torch.tools import fuzz_differential as fz
+
+    t0 = time.perf_counter()
+    recs = []
+    logs = io.StringIO()  # the runs' stderr, shown when a corpus fails
+    for kind, seeds, threads, check in FUZZ_PARTS:
+        tag = f"{kind}-t{threads}{'-check' if check else ''}"
+        print(f"fuzz {tag}: seeds {seeds[0]}-{seeds[-1]} "
+              f"({len(seeds)}), -t {threads}"
+              f"{', TRUST4_TPU_DEVICE_CHECK=1' if check else ''}", flush=True)
+        with contextlib.redirect_stderr(logs):
+            part = fz.wave(seeds, kind, os.path.join(work, "fuzz", tag),
+                           (coord, imgt), "cuda", threads, check)
+        recs += [dict(r, part=tag) for r in part]
+    wall = time.perf_counter() - t0
+    bad = [r for r in recs if r["mismatches"]]
+    if bad:
+        print(logs.getvalue()[-20000:], file=sys.stderr, flush=True)
+    ran = [r for r in recs if "dev" in r]
+    if any(r["dev"]["prewarm_launches"] for r in ran):
+        raise AssertionError("fuzz phase: a prewarm launched inside a run")
+    # Per part: seeds by mode and jobs beyond the top tier by mode; the
+    # summed walls (card, TRUST4_TPU_DEVICE=0) by part and by part/mode.
+    modes, miss, walls = {}, {}, {}
+    for r in ran:
+        base = r["mode"].split("+")[0]
+        m = modes.setdefault(r["part"], {})
+        m[r["mode"]] = m.get(r["mode"], 0) + 1
+        m = miss.setdefault(r["part"], {})
+        m[base] = m.get(base, 0) + r["miss"]
+        for key in (r["part"], f"{r['part']}/{base}"):
+            w = walls.setdefault(key, {"card_s": 0.0, "off_s": 0.0})
+            w["card_s"] += r["dev"]["wall_s"]
+            w["off_s"] += r["off"]["wall_s"]
+    out = {"corpora": len(recs), "mismatched": len(bad),
+           "launches": sum(r["launches"] for r in ran),
+           "fills": sum(r["fills"] for r in ran),
+           "reads": sum(r["n"] for r in recs), "modes": modes, "miss": miss,
+           "walls": walls, "wall_s": wall}
+    print(f"fuzz: modes drawn per part {json.dumps(modes)}", flush=True)
+    print(f"fuzz: jobs beyond the top tier (miss) per part and mode "
+          f"{json.dumps(miss)}", flush=True)
+    print(f"fuzz: MISMATCHED CORPORA: {len(bad)} of {len(recs)}; #1 "
+          f"launches {out['launches']}; phase {wall:.1f}s; {card}; "
+          f"{json.dumps(out)}", flush=True)
+    if bad:
+        raise AssertionError(f"fuzz phase: {len(bad)} mismatched corpora: "
+                             + "; ".join(fz.seed_line(r) for r in bad))
+    if out["launches"] == 0:
+        raise AssertionError("fuzz phase: #1 never launched")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2237,6 +2320,7 @@ def main() -> int:
                                                          coord_bam)
         prewarm["ranks"] = ranks["prewarm_launches"]
         phase_bench(work)
+        fuzz = phase_fuzz(work, coord, imgt, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dirs_launches, dirs_tiers, dirs_others = phase_dirs(sass)
@@ -2267,6 +2351,7 @@ def main() -> int:
         "library_ms": None,
         "mesh_launches": ranks["launches"]["dp_counts"],
         "mode_launches": mode_launches,
+        "fuzz_launches": fuzz["launches"],
         "prewarm_launches": prewarm,
         "per_thread_ms": top["per_thread_ms"],
         "main_path_kernel_ms": sum(scale["oracle"]["tier_kernel_ms"]),

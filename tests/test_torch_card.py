@@ -471,3 +471,18 @@ def test_bam_run_card_matches_device0(card, tmp_path, monkeypatch):
     _card_vs_device0(out, monkeypatch, lambda d: run_trust4(
         coord, imgt, bam_file=bam, output_prefix=os.path.join(d, "bam"),
         device="cuda"))
+
+
+def test_fuzz_seeds_card_match_device0(card, tmp_path, monkeypatch):
+    """Three of the fuzz harness's seeds at full size (bulk pe, bulk long,
+    barcoded with --contigMinCov): the card in the shipping mode against
+    TRUST4_TPU_DEVICE=0, every file byte-identical."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.tools import fuzz_differential as fz
+
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    refs = testing.write_standin_references(str(tmp_path / "ref"))
+    for kind, seed in (("bulk", 9000), ("bulk", 9004), ("barcoded", 9000)):
+        rec = fz.run_seed(seed, kind, str(tmp_path), refs, device="cuda")
+        assert rec["mismatches"] == [], fz.seed_line(rec)
+        assert rec["launches"] > 0 and rec["off"]["launches"] == 0

@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax_or_trust4_tpu():
               "parallel.mesh", "parallel.gap_mesh", "parallel.asm_mesh",
               "entry",
               "pipeline.run", "tools", "tools.dp_kernel_lab",
-              "tools.vpu_microbench", "ops.gap_oracle", "utils.parallel",
+              "tools.vpu_microbench", "tools.fuzz_differential",
+              "ops.gap_oracle", "utils.parallel",
               "pipeline.smartseq", "pipeline.bam_extract", "io.bam_native",
               "testing", "cli", "bench"):
         assert "trust4_tpu_torch." + m in mods, m
