@@ -30,10 +30,11 @@ It drives the port only (never jax, never trust4_tpu):
 4. gold phase: the paired-end gold reads through ``run_trust4`` on the
    card in check mode with the stand-in references; every artifact must
    equal tests/data/gold_*;
-5. scale phase: a 500k-read bulk corpus (tools/make_bench_corpus.py) run
-   on the card with the default settings (the main path: launches counted
-   from 0 around it; the gap oracle's per-tier launches and CUDA-event
-   kernel ms) and again with TRUST4_TPU_DEVICE=0; the artifacts must be
+5. scale phase: a 500k-read bulk corpus (the port's
+   tools/make_bench_corpus.py) run on the card with the default settings
+   (the main path: launches counted from 0 around it; the gap oracle's
+   per-tier launches and CUDA-event kernel ms) and again with
+   TRUST4_TPU_DEVICE=0; the artifacts must be
    byte-identical and the kernel must have launched; a third card run
    under torch.profiler gives the device's busy and idle share;
 6. realign phase: the scale run's own candidate reads and contigs, with
@@ -54,8 +55,8 @@ It drives the port only (never jax, never trust4_tpu):
    every rank's five outputs equal to ``realign_round``'s; (c) the scale
    run's annotation stage under TRUST4_TPU_GAP_MESH at 2 and 4 ranks,
    ``_cdr3.out`` and ``_annot.fa`` byte-identical to the scale run's; (d)
-   a barcoded corpus (tools/make_bench_corpus.make_barcoded_corpus at its
-   defaults) assembled by the thread pool, then by the mesh executor at
+   a barcoded corpus (the port's make_bench_corpus.make_barcoded_corpus at
+   its defaults) assembled by the thread pool, then by the mesh executor at
    2 and 4 ranks, ``_final.out`` byte-identical; every rank must launch
    the part's kernel, and a failing rank fails the script;
 9. dirs phase: the traceback-bits path (``ops/dp_dirs.dirs_counts``: the
@@ -111,7 +112,23 @@ It drives the port only (never jax, never trust4_tpu):
    shipping mode (launches counted from 0 around it) against
    TRUST4_TPU_DEVICE=0, every file byte-identical (report tables
    sorted); #1 must launch; it prints each seed's line, the modes drawn,
-   the jobs beyond the top tier per mode, the walls and the card.
+   the jobs beyond the top tier per mode, the walls and the card;
+15. asan phase (a subprocess beside the fuzz phase, as is 16):
+   ``python -m trust4_tpu_torch.tools.asan_check 7000 7003 --device
+   cuda`` in a subprocess (its libraries built with AddressSanitizer in
+   the build phase): under libasan, the gold reads (held to their
+   goldens), bulk and barcoded seeds 7000-7002, a 20,000-pair stand-in
+   BAM and bulk seed 7000 at -t 8, each in the shipping mode on the card
+   against TRUST4_TPU_DEVICE=0, byte-identical; it must end with ``asan
+   check passed``, every part having launched #1; its lines, the wall,
+   the bulk and barcoded wall per corpus against the fuzz phase's, and
+   the card are printed;
+16. trace phase: ``python -m trust4_tpu_torch.tools.debug_trace_check
+   --device cuda --fuzz-seed 9000 --fuzz-seed 9004`` in a subprocess, on
+   the gold reads and fuzz corpora 9000 (pe) and 9004 (long): the
+   TRUST4_TPU_DEBUG=1 assembly trace of the shipping mode on the card
+   byte-identical to TRUST4_TPU_DEVICE=0's; its lines, the wall and the
+   card are printed.
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
@@ -136,6 +153,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -192,25 +210,30 @@ def card_line() -> str:
 
 def phase_build() -> dict:
     """nvcc for the kernels and, side by side with it, g++ for the native
-    libraries, so no later phase times a build.  Returns the SASS counts
+    libraries and for their ASan build (tools/asan_check.py), so no later
+    phase times a build.  Returns the SASS counts
     (_sass_counts) of every kernel instance, with the registers and
     spills ptxas reported for it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from trust4_tpu_torch.ops import build
+    from trust4_tpu_torch.tools.asan_check import build_asan
     from trust4_tpu_torch.utils.nativebuild import ensure_built
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         nvcc = pool.submit(build.build_all)
+        asan = pool.submit(build_asan)  # the asan phase's libraries
         for lib in ("libt4align.so", "libt4extract.so", "libt4overlap.so",
                     "libt4bam.so"):
             ensure_built(lib)
         t_native = time.perf_counter() - t0
         nvcc.result()
+        t_asan = asan.result()
     print(f"build: nvcc {max(build.BUILD_SECONDS.values(), default=0):.2f}s "
-          f"{json.dumps(build.BUILD_SECONDS)}, native {t_native:.2f}s (side "
-          f"by side), phase {time.perf_counter() - t0:.2f}s", flush=True)
+          f"{json.dumps(build.BUILD_SECONDS)}, native {t_native:.2f}s, "
+          f"native with ASan {t_asan:.2f}s (side by side), phase "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "error" in line:
@@ -1314,7 +1337,7 @@ def phase_prefilter(work: str, coord: str, imgt: str) -> dict:
     """A 20k-read corpus through run_trust4 with the prefilter on the
     card and with the default native extractor: byte-identical artifacts.
     Returns the survivor share and the prefilter's card time."""
-    from tools.make_bench_corpus import make_corpus
+    from trust4_tpu_torch.tools.make_bench_corpus import make_corpus
     from trust4_tpu_torch.engine.seqset import SeqSet
     from trust4_tpu_torch.io.fastx import read_fastx
     from trust4_tpu_torch.ops import prefilter
@@ -1558,7 +1581,7 @@ def phase_ranks(work: str, coord: str, imgt: str, realign_card) -> dict:
     (gloo) ranks over cuda:0, spawned by parallel/mesh.py (see
     _ranks_body).  Returns the launches by kernel over every rank, and
     the ranks' prewarms' launches apart."""
-    from tools.make_bench_corpus import make_barcoded_corpus
+    from trust4_tpu_torch.tools.make_bench_corpus import make_barcoded_corpus
     from trust4_tpu_torch.ops import dp_counts
     from trust4_tpu_torch.ops.gap_oracle import _TIERS
     from trust4_tpu_torch.parallel.mesh import spawn
@@ -1714,7 +1737,7 @@ def phase_scale(work: str, coord: str, imgt: str, n_reads: int) -> dict:
     """The main path at scale on the card, then the native CPU DP; the
     artifacts must agree byte for byte.  Returns the card run's record
     with the launches counted from 0 around it."""
-    from tools.make_bench_corpus import make_corpus
+    from trust4_tpu_torch.tools.make_bench_corpus import make_corpus
     from trust4_tpu_torch.ops import dp_counts
 
     fq = os.path.join(work, "bulk.fq")
@@ -2022,7 +2045,7 @@ def phase_modes(work: str, coord: str, imgt: str, coord_bam: str) -> dict:
     with TRUST4_TPU_DEVICE=0 (byte-identical), launches of #1 counted from
     0 around each card run.  Returns {part: launches} and the launches
     of part (f)'s cold prewarm."""
-    from tools.make_bench_corpus import make_barcoded_corpus
+    from trust4_tpu_torch.tools.make_bench_corpus import make_barcoded_corpus
     from trust4_tpu_torch.pipeline.assembler import Assembler
     from trust4_tpu_torch.pipeline.extract import run_extractor
     from trust4_tpu_torch.pipeline.run import run_trust4
@@ -2286,6 +2309,126 @@ def phase_fuzz(work: str, coord: str, imgt: str, card: str) -> dict:
     return out
 
 
+# Asan phase: bulk and barcoded seeds [7000, 7003), the first half of
+# tools/asan_check.sh's [7000, 7006) (the seed count lowered to fit the
+# script's time limit; every corpus at its recipe's size), its other
+# parts at the tool's sizes.
+ASAN_ARGS = ("7000", "7003", "--device", "cuda")
+# Trace phase: the gold reads, and the first pe and the first long
+# corpus from 9000 up (both reach the leftover path).
+TRACE_SEEDS = (9000, 9004)
+
+
+class _ToolPhase:
+    """``python -m <argv>`` started as a subprocess on cuda:0, a thread
+    reading its output and taking its wall when it exits; ``finish``
+    waits for it (killing it at ``timeout`` s), prints its stdout lines
+    as ``tag | line`` and its stderr's end when it failed (then raises),
+    and returns (stdout, wall)."""
+
+    def __init__(self, tag: str, argv, card: str, timeout: int):
+        self.tag, self.argv, self.card, self.timeout = tag, argv, card, timeout
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=REPO,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+        self.done = {}
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        out, err = self.proc.communicate()
+        self.done.update(out=out, err=err, wall=time.perf_counter() - self.t0)
+
+    def finish(self):
+        self.waiter.join(max(0.0, self.t0 + self.timeout
+                             - time.perf_counter()))
+        if self.waiter.is_alive():
+            self.proc.kill()
+            self.waiter.join()
+        out, err, wall = self.done["out"], self.done["err"], self.done["wall"]
+        for line in out.splitlines():
+            print(f"{self.tag} | {line}", flush=True)
+        rc = self.proc.returncode
+        print(f"{self.tag}: exit {rc} in {wall:.1f}s; {self.card}", flush=True)
+        if rc != 0:
+            print(err[-20000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"{self.tag} phase: {self.argv[0]} exited "
+                                 f"{rc}")
+        return out, wall
+
+
+def phase_fuzz_asan_trace(work: str, coord: str, imgt: str, card: str):
+    """The fuzz phase in this process, with the asan phase and the trace
+    phase beside it as two subprocesses on the card, started just before
+    it (none of the three times a kernel; the fuzz phase's aim is
+    coverage, not a wall).  A failed fuzz phase kills both.
+
+    Asan: trust4_tpu_torch.tools.asan_check (``ASAN_ARGS``), the native
+    libraries with AddressSanitizer under libasan, every part in the
+    shipping mode against TRUST4_TPU_DEVICE=0, byte-identical; it must
+    exit 0 with ``asan check passed``, every part having launched #1.
+
+    Trace: trust4_tpu_torch.tools.debug_trace_check on the card, the
+    TRUST4_TPU_DEBUG=1 assembly trace of the gold reads and of the
+    ``TRACE_SEEDS`` corpora in the shipping mode, byte-identical to
+    TRUST4_TPU_DEVICE=0's.
+
+    Prints the asan bulk and barcoded parts' wall per corpus against the
+    fuzz phase's (both runs of a corpus, other seeds, -t 4 against -t 1,
+    the three phases side by side).  Returns phase_fuzz's record and the
+    asan parts' walls and launches, the trace's line counts and each
+    tool's wall; raises when any of the three fails."""
+    argv = ["trust4_tpu_torch.tools.debug_trace_check", "--device", "cuda"]
+    for seed in TRACE_SEEDS:
+        argv += ["--fuzz-seed", str(seed)]
+    trace = _ToolPhase("trace", argv, card, 900)
+    asan = _ToolPhase("asan", ("trust4_tpu_torch.tools.asan_check",
+                               *ASAN_ARGS), card, 900)
+    try:
+        fuzz = phase_fuzz(work, coord, imgt, card)
+    except BaseException:
+        for tool in (asan, trace):
+            tool.proc.kill()
+        raise
+    try:
+        out, asan_wall = asan.finish()
+    finally:
+        trace_out, trace_wall = trace.finish()
+    if out.splitlines()[-1] != "asan check passed":
+        raise AssertionError("asan phase: no 'asan check passed' line")
+    parts = {m.group(1): {"corpora": int(m.group(2)),
+                          "wall_s": float(m.group(3)),
+                          "launches": int(m.group(4))}
+             for m in re.finditer(
+                 r"^asan (\w+): corpora=(\d+) wall=([\d.]+)s fills=\d+ "
+                 r"miss=\d+ launches=(\d+): OK$", out, re.M)}
+    if set(parts) != {"gold", "bulk", "barcoded", "bam", "t8"}:
+        raise AssertionError(f"asan phase: parts {sorted(parts)}")
+    if not all(p["launches"] for p in parts.values()):
+        raise AssertionError("asan phase: a part never launched #1")
+    slowdown = {}
+    for kind in ("bulk", "barcoded"):
+        part = f"{kind}-t1"
+        fuzz_s = (sum(fuzz["walls"][part].values())
+                  / sum(fuzz["modes"][part].values()))
+        asan_s = parts[kind]["wall_s"] / parts[kind]["corpora"]
+        slowdown[kind] = asan_s / fuzz_s
+        print(f"asan: {kind} {asan_s:.3f} s a corpus under ASan against "
+              f"{fuzz_s:.3f} s in the fuzz phase ({part}): "
+              f"{slowdown[kind]:.2f}x", flush=True)
+    lines = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^(.+): debug trace identical \((\d+) lines\)$", trace_out, re.M)}
+    if len(lines) != 1 + len(TRACE_SEEDS):
+        raise AssertionError(f"trace phase: identical for {sorted(lines)} "
+                             "only")
+    return fuzz, {"parts": parts, "asan_wall_s": asan_wall,
+                  "slowdown": slowdown,
+                  "launches": sum(p["launches"] for p in parts.values()),
+                  "trace_lines": lines, "trace_wall_s": trace_wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2320,7 +2463,7 @@ def main() -> int:
                                                          coord_bam)
         prewarm["ranks"] = ranks["prewarm_launches"]
         phase_bench(work)
-        fuzz = phase_fuzz(work, coord, imgt, card)
+        fuzz, asan = phase_fuzz_asan_trace(work, coord, imgt, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dirs_launches, dirs_tiers, dirs_others = phase_dirs(sass)
@@ -2352,6 +2495,7 @@ def main() -> int:
         "mesh_launches": ranks["launches"]["dp_counts"],
         "mode_launches": mode_launches,
         "fuzz_launches": fuzz["launches"],
+        "asan_launches": asan["launches"],
         "prewarm_launches": prewarm,
         "per_thread_ms": top["per_thread_ms"],
         "main_path_kernel_ms": sum(scale["oracle"]["tier_kernel_ms"]),

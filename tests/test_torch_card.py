@@ -486,3 +486,35 @@ def test_fuzz_seeds_card_match_device0(card, tmp_path, monkeypatch):
         rec = fz.run_seed(seed, kind, str(tmp_path), refs, device="cuda")
         assert rec["mismatches"] == [], fz.seed_line(rec)
         assert rec["launches"] > 0 and rec["off"]["launches"] == 0
+
+
+def test_debug_trace_tool_on_card(card):
+    """The gold reads' TRUST4_TPU_DEBUG=1 assembly trace in the shipping
+    mode on the card, byte-identical to TRUST4_TPU_DEVICE=0's."""
+    import os
+    import subprocess
+    import sys
+
+    from trust4_tpu_torch.tools import debug_trace_check as dt
+
+    r = subprocess.run(
+        [sys.executable, "-m", "trust4_tpu_torch.tools.debug_trace_check",
+         "--device", "cuda"], capture_output=True, text=True, cwd=dt.REPO,
+        timeout=600, env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+    assert r.returncode == 0, r.stdout + r.stderr[-4000:]
+    assert r.stdout.splitlines() == [
+        "gold: debug trace identical (8234 lines)"]
+
+
+def test_native_dir_on_card(card, tmp_path):
+    """TRUST4_TPU_NATIVE_DIR on the card's machine: a fresh process loads
+    all four libraries from the named copy of native/."""
+    import os
+
+    from test_torch_native_dir import LIBS, loaded_from, native_copy
+
+    d = native_copy(str(tmp_path / "native"))
+    maps = loaded_from(d)
+    for lib in LIBS:
+        assert [os.path.dirname(os.path.realpath(p)) for p in maps[lib]] == [
+            os.path.realpath(d)], (lib, maps)

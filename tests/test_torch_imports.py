@@ -1,5 +1,6 @@
 """The port stands alone: importing any module of trust4_tpu_torch loads
-neither jax nor the JAX package, and no source file imports it."""
+neither jax nor the JAX package nor the repository's ``tools`` package,
+and no source file (chip_smoke.py included) imports them."""
 
 import os
 import pkgutil
@@ -29,6 +30,8 @@ def test_every_module_imports_without_jax_or_trust4_tpu():
               "entry",
               "pipeline.run", "tools", "tools.dp_kernel_lab",
               "tools.vpu_microbench", "tools.fuzz_differential",
+              "tools.asan_check", "tools.debug_trace_check",
+              "tools.make_bench_corpus", "utils.nativebuild",
               "ops.gap_oracle", "utils.parallel",
               "pipeline.smartseq", "pipeline.bam_extract", "io.bam_native",
               "testing", "cli", "bench"):
@@ -39,7 +42,8 @@ def test_every_module_imports_without_jax_or_trust4_tpu():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'trust4_tpu' or "
-        "m.startswith('trust4_tpu.'))\n"
+        "m.startswith('trust4_tpu.') or m == 'tools' or "
+        "m.startswith('tools.'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
@@ -63,3 +67,31 @@ def test_no_source_imports_the_jax_package():
     assert not offenders, offenders
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         assert not pat.search(fh.read())
+
+
+def test_no_source_imports_the_repo_tools_package():
+    """The port's tools are its own (trust4_tpu_torch/tools/): neither a
+    module of the port nor chip_smoke.py imports the repository's
+    ``tools`` package, nor puts the repository on sys.path for it."""
+    pat = re.compile(r"^\s*(from|import)\s+tools(\.|\s|$)", re.M)
+    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG_DIR):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            offenders += [(path, m.group(0).strip())
+                          for m in pat.finditer(fh.read())]
+    assert not offenders, offenders
+    code = ("import sys\n"
+            "import importlib.util as u\n"
+            "spec = u.spec_from_file_location('cs', 'chip_smoke.py')\n"
+            "m = u.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'tools' or "
+            "k.startswith('tools.') or k == 'jax' or k.startswith('jax.') "
+            "or k == 'trust4_tpu' or k.startswith('trust4_tpu.'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

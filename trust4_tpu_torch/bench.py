@@ -190,12 +190,10 @@ class Setup:
 
 
 def _corpus_tools():
-    """tools/make_bench_corpus.py (numpy only), from the repository."""
-    if REPO not in sys.path:
-        sys.path.insert(0, REPO)
-    import tools.make_bench_corpus as corpus_tools
+    """The port's copy of tools/make_bench_corpus.py (numpy only)."""
+    from trust4_tpu_torch.tools import make_bench_corpus
 
-    return corpus_tools
+    return make_bench_corpus
 
 
 def ensure_corpus(setup: Setup, n_reads: int) -> str:

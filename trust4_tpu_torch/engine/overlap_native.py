@@ -16,7 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from trust4_tpu_torch.utils.nativebuild import NATIVE_DIR, ensure_built
+from trust4_tpu_torch.utils.nativebuild import ensure_built, native_dir
 
 _LIB = None
 _TRIED = False
@@ -50,7 +50,7 @@ def _load():
         "[trust4-tpu] WARNING: native overlap engine unavailable "
         "(libt4overlap.so failed to build or load); falling back "
         "to the 10-100x slower Python host path.  Run "
-        f"`make -C {NATIVE_DIR}`.",
+        f"`make -C {native_dir()}`.",
         file=_sys.stderr,
         flush=True,
     )

@@ -51,7 +51,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from trust4_tpu_torch.io.fastx import read_fastx
 
@@ -269,35 +269,26 @@ def _run_cli(argv: List[str], env: Dict[str, str]) -> None:
         raise RuntimeError(f"run exited {rc}")
 
 
-def run_seed(seed: int, kind: str, work: str, refs: Sequence[str],
-             device: str = "cuda", threads: int = 1, check: bool = False,
-             max_clones: Optional[int] = None,
-             max_depth: Optional[int] = None) -> Dict:
-    """Draw seed's ``kind`` ("bulk" or "barcoded") corpus into
-    ``work/kind/seed`` and run it through the port's CLI twice: on
-    ``device`` in the shipping mode (TRUST4_TPU_DEVICE=1, and
-    TRUST4_TPU_DEVICE_CHECK=1 with ``check``) into ``dev/``, then with
-    TRUST4_TPU_DEVICE=0 into ``off/``; compare every file.  ``refs`` is
-    (coordinate FASTA, IMGT FASTA).  The device's prewarm is joined before
-    the counts are zeroed.  Returns the mode, the read count, the first
-    run's gap fills, per-tier unique jobs, beyond-top-tier jobs
-    (``miss``) and launches of #1, the mismatches, the CLI arguments
-    (``args``, without ``--device`` and ``-o``), both output directories
-    and, under ``dev`` and ``off``, each run's wall and counts."""
+def run_both(args: List[str], d: str, device: str = "cuda",
+             check: bool = False,
+             inputs: Sequence[Tuple[str, str]] = ()) -> Dict:
+    """Run the port's CLI with ``args`` twice: on ``device`` in the
+    shipping mode (TRUST4_TPU_DEVICE=1, and TRUST4_TPU_DEVICE_CHECK=1 with
+    ``check``) into ``d/dev/``, then with TRUST4_TPU_DEVICE=0 into
+    ``d/off/``, each with ``-o <dir>/fz``; compare every file.  Each
+    (path, suffix) of ``inputs`` is copied into both directories first as
+    ``fz<suffix>`` (the files of a run resumed at ``--stage``).  The
+    device's
+    prewarm is joined before the counts are zeroed.  Returns the
+    mismatches, both output directories and, under ``dev`` and ``off``,
+    each run's wall and counts (gap fills, per-tier unique jobs, jobs
+    beyond the top tier as ``miss``, launches of #1)."""
     import torch
 
     from trust4_tpu_torch.ops import dp_counts, gap_oracle
 
-    d = os.path.join(work, kind, str(seed))
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
-    corpus = GENERATORS[kind](seed, d, refs[0], max_clones=max_clones,
-                              max_depth=max_depth)
-    args = ["-f", refs[0], "--ref", refs[1], "-t", str(threads)] + corpus[
-        "args"]
     gap_oracle.wait_ready(device)
-    rec = {"seed": seed, "kind": kind, "mode": corpus["mode"],
-           "n": corpus["n"], "args": args, "mismatches": [],
+    rec = {"mismatches": [],
            "dirs": {"dev": os.path.join(d, "dev"),
                     "off": os.path.join(d, "off")}}
     runs = (("dev", {"TRUST4_TPU_DEVICE": "1",
@@ -307,6 +298,8 @@ def run_seed(seed: int, kind: str, work: str, refs: Sequence[str],
     for tag, env in runs:
         out = rec["dirs"][tag]
         os.makedirs(out)
+        for path, suffix in inputs:
+            shutil.copy(path, os.path.join(out, PREFIX + suffix))
         gap_oracle.reset_stats()
         dp_counts.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -331,6 +324,28 @@ def run_seed(seed: int, kind: str, work: str, refs: Sequence[str],
                                          rec["dirs"]["off"])
     for k in ("fills", "tier_unique", "miss", "launches"):
         rec[k] = rec["dev"][k]
+    return rec
+
+
+def run_seed(seed: int, kind: str, work: str, refs: Sequence[str],
+             device: str = "cuda", threads: int = 1, check: bool = False,
+             max_clones: Optional[int] = None,
+             max_depth: Optional[int] = None) -> Dict:
+    """Draw seed's ``kind`` ("bulk" or "barcoded") corpus into
+    ``work/kind/seed`` and run it through ``run_both``.  ``refs`` is
+    (coordinate FASTA, IMGT FASTA).  Returns ``run_both``'s record with
+    the seed, the mode, the read count and the CLI arguments (``args``,
+    without ``--device`` and ``-o``)."""
+    d = os.path.join(work, kind, str(seed))
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    corpus = GENERATORS[kind](seed, d, refs[0], max_clones=max_clones,
+                              max_depth=max_depth)
+    args = ["-f", refs[0], "--ref", refs[1], "-t", str(threads)] + corpus[
+        "args"]
+    rec = {"seed": seed, "kind": kind, "mode": corpus["mode"],
+           "n": corpus["n"], "args": args}
+    rec.update(run_both(args, d, device, check))
     return rec
 
 
