@@ -89,11 +89,11 @@ It drives the port only (never jax, never trust4_tpu):
    bulk FASTQ, each part on the card (launches of the counts kernel
    counted from 0 around it, which must be at least 1) and with
    TRUST4_TPU_DEVICE=0, every file byte-identical: (a) a barcoded run of
-   a 5,000-cell 10x-style corpus with a whitelist; (b) a bulk BAM of
-   250,000 pairs (``testing.write_standin_bam``, against the coordinate
+   a 2,500-cell 10x-style corpus with a whitelist; (b) a bulk BAM of
+   125,000 pairs (``testing.write_standin_bam``, against the coordinate
    stand-in); (c) the barcoded tests/data/bambc/bc.bam (also held to its
-   goldens) and 20,000 barcoded pairs from the writer; (d) a 96-cell
-   SMART-seq plate of 2,000 pairs a cell through ``run_smartseq``; (e)
+   goldens) and 20,000 barcoded pairs from the writer; (d) 48 cells of a
+   SMART-seq plate, 2,000 pairs a cell, through ``run_smartseq``; (e)
    each mode of tests/data/modes (also held to its golden); (f) the
    scale corpus with TRUST4_TPU_DEVICE_TIMEOUT_S=1 in a fresh process
    (byte-identical to the scale phase's TRUST4_TPU_DEVICE=0 run) and, in
@@ -101,10 +101,15 @@ It drives the port only (never jax, never trust4_tpu):
    within their deadlines and exit non-zero;
 13. bench phase: ``python -m trust4_tpu_torch.bench --reads 100000`` in
    a subprocess with T4BENCH_SCALE=0 and T4BENCH_BARCODED=0 (the bulk
-   A/B, the import wall, extraction reads/s, kernel #3's sustained rate
-   and the host-input and tier-2 launches); it must exit 0 with every
-   timed run held byte-identical to its first TRUST4_TPU_DEVICE=0 run
-   and end with bench.py's JSON line; its lines are printed;
+   A/B, the import walls of the CLI alone, torch alone and both,
+   extraction reads/s, kernel #3's sustained rate and the host-input and
+   tier-2 launches); it must exit 0 with every timed run held
+   byte-identical to its first TRUST4_TPU_DEVICE=0 run and end with
+   bench.py's JSON line; its lines are printed, each run's boot line
+   among them, and in every run the thread that loaded torch must be the
+   boot thread (shipping mode) or none (TRUST4_TPU_DEVICE=0); then a
+   shipping-mode CLI run with a missing input, failing in extraction
+   while the boot thread imports torch, must exit 1 with its own error;
 14. fuzz phase: ``trust4_tpu_torch.tools.fuzz_differential`` in this
    process on the card at the JAX harnesses' sizes: bulk seeds 9000-9031
    and 9041 at -t 1, 9032-9039 at -t 8, barcoded seeds 9000-9015 at -t 1
@@ -132,7 +137,10 @@ It drives the port only (never jax, never trust4_tpu):
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
-report each kernel's time in back-to-back launches (``device_ms``).
+report each kernel's time in back-to-back launches (``device_ms``).  The
+dirs and lab phases time each instance over N_SWEEP launches and each
+plain version over N_PLAIN; every phase's wall is printed before the
+kernels line.
 
 It prints one ``{"kernels": [...]}`` line, the card line again, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -194,6 +202,12 @@ OPS_PER_CELL = 25
 # 6): 24.
 DIRS_OPS_PER_CELL = 24
 N_TIMED = 15
+# The dirs and lab phases' depth (they sweep every instance at many
+# shapes): each instance timed over N_SWEEP launches, each plain version
+# over N_PLAIN after one warm-up call.  Every instance is still held
+# bit-equal to its plain version.
+N_SWEEP = 5
+N_PLAIN = 3
 N_SAMPLE = 2000
 SCALE_READS = 500_000
 PREFILTER_READS = 20_000
@@ -775,7 +789,7 @@ def _dirs_record(tag, tc, tl, pc, pl, w, args, max_abs_err,
                            N_TIMED)
     if plain:
         rec["plain_ms"] = _median_ms(
-            lambda: banded_affine_dirs_plain(*args, w), N_TIMED)
+            lambda: banded_affine_dirs_plain(*args, w), N_PLAIN, warmup=1)
     rec["kernel_over_bound"] = rec["ms"] / rec["bound_ms"]
     return rec
 
@@ -784,7 +798,7 @@ def _dirs_instances(sass, rec, args, want) -> None:
     """Every built (W, L) instance of the dirs kernel on one batch: its
     scores and whole (N, P, W) bits tensor bit-equal to the plain
     version's (want, on the card), then timed (the CUDA-event median of
-    N_TIMED launches and back to back) beside its SASS per tile cell,
+    N_SWEEP launches and back to back) beside its SASS per tile cell,
     registers and spills; the instance the wrapper's CHOICE picks, the
     fastest and the one-thread one on rec."""
     from trust4_tpu_torch.ops import dp_dirs
@@ -809,10 +823,10 @@ def _dirs_instances(sass, rec, args, want) -> None:
             "loop", "per_tile_cell", "registers", "spill_stores",
             "spill_loads")})
         r["ms"] = _median_ms(lambda: dp_dirs.launch(*args, w, lanes),
-                             N_TIMED)
+                             N_SWEEP)
         recs[lanes] = r
     dev_ms = _device_ms([lambda ln=ln: dp_dirs.launch(*args, w, ln)
-                         for ln in recs], N_TIMED)
+                         for ln in recs], N_SWEEP)
     for r, ms in zip(recs.values(), dev_ms):
         r["device_ms"] = ms
         r["device_over_bound"] = ms / rec["bound_ms"]
@@ -916,7 +930,7 @@ def phase_dirs(sass: dict):
             "ms": _median_ms(lambda: dp_dirs.decode_dirs_counts(
                 d_k, *args, w=w, p_max=cap), N_TIMED),
             "plain_ms": _median_ms(lambda: dp_dirs.decode_dirs_counts_plain(
-                d_k, *args, w=w, p_max=cap), 3, warmup=1)}
+                d_k, *args, w=w, p_max=cap), N_PLAIN, warmup=1)}
         rec["counts_kernel_ms"] = _median_ms(
             lambda: dp_counts.banded_affine_counts(*args, w), N_TIMED)
         records.append(rec)
@@ -996,7 +1010,7 @@ def phase_lab(scores_bench: dict, sass: dict):
     inputs in the scores wrapper's order: bit-equal to its plain version,
     the ablation kernel with no flag also to the scores kernel (the
     wrapper, and its launch at the same L); timed, the launch alone
-    (median of N_TIMED CUDA-event launches, and back to back), beside its
+    (median of N_SWEEP CUDA-event launches, and back to back), beside its
     registers and spills; one line each.  Last the split table: at each L,
     what each flag's removal saves against no flag, and the interleaved
     kernel against no flag.  Returns {row name: record}."""
@@ -1061,17 +1075,17 @@ def phase_lab(scores_bench: dict, sass: dict):
             rec.update({k: sass[key].get(k) for k in (
                 "total", "loop", "per_tile_cell", "per_tile_cell_by_width",
                 "registers", "spill_stores", "spill_loads")})
-            rec["ms"] = _median_ms(call, N_TIMED)
+            rec["ms"] = _median_ms(call, N_SWEEP)
             insts.append(rec)
             calls.append(call)
     scores_calls = [lambda ln=ln: dp_scores.launch(*args, w, ln, order)
                     for ln in lab.LANES]
-    dev_ms = _device_ms(calls + scores_calls, N_TIMED)
+    dev_ms = _device_ms(calls + scores_calls, N_SWEEP)
     for rec, ms in zip(insts, dev_ms):
         rec["device_ms"] = ms
         print(f"lab instance {json.dumps(rec)}", flush=True)
     scores_dev = dict(zip(lab.LANES, dev_ms[len(insts):]))
-    scores_ms = {ln: _median_ms(call, N_TIMED)
+    scores_ms = {ln: _median_ms(call, N_SWEEP)
                  for ln, call in zip(lab.LANES, scores_calls)}
 
     # The split: device ms back to back at each L; a flag's saving is the
@@ -1109,9 +1123,10 @@ def phase_lab(scores_bench: dict, sass: dict):
                                             "cells", "bytes", "bound_ms",
                                             "bound_by")}
     plain_ms = _median_ms(lambda: banded_affine_scores_plain(*args, w),
-                          N_TIMED)
+                          N_PLAIN, warmup=1)
     abl_plain_ms = _median_ms(
-        lambda: lab.banded_affine_scores_ablated(*args, w), N_TIMED)
+        lambda: lab.banded_affine_scores_ablated(*args, w), N_PLAIN,
+        warmup=1)
     out = {}
     # The kernels line's rows: each kernel at the wrapper's default L.
     abl_lanes = dp_scores.lanes_for(len(tl), w)
@@ -1822,13 +1837,15 @@ def _profiled(work: str, kw: dict) -> dict:
     return busy
 
 
-# Modes phase sizes: what users run.  A 5' V(D)J library of a few
-# thousand cells; a bulk BAM the size of the scale corpus; one 96-well
-# SMART-seq plate.
-SC_CELLS = 5000
-BAM_PAIRS = 250_000
+# Modes phase sizes: what users run, halved for the script's time limit
+# (with 5,000 cells, 250,000 pairs and 96 wells the whole script took
+# 1,001 s of its 1,200 s on one NVIDIA H100 80GB HBM3 host, PERF.md).  A 5' V(D)J library of a few
+# thousand cells; a bulk BAM of half the scale corpus's reads; half a
+# 96-well SMART-seq plate.
+SC_CELLS = 2500
+BAM_PAIRS = 125_000
 BAM_BC_PAIRS = 20_000
-PLATE_CELLS = 96
+PLATE_CELLS = 48
 PLATE_PAIRS = 2000
 # Part (f)'s deadlines (seconds).
 DEADLINE_S = 1
@@ -2202,12 +2219,19 @@ def phase_modes(work: str, coord: str, imgt: str, coord_bam: str) -> dict:
     return launches, deadline["deadline_run"]["prewarm_launches"]
 
 
-def phase_bench(work: str) -> dict:
+def phase_bench(work: str, coord: str, imgt: str) -> dict:
     """The port's bench (trust4_tpu_torch/bench.py) in a subprocess, the
     scale and barcoded parts gated off: exit 0, every timed bulk run held
     (2 configs x 2 rounds x 2 thread counts, each against the first
-    TRUST4_TPU_DEVICE=0 run), bench.py's four keys last.  Returns its
-    record."""
+    TRUST4_TPU_DEVICE=0 run), bench.py's four keys last.  The device
+    stack's boot: every run's [boot] line is relayed, and in each the boot
+    thread loaded torch in the shipping mode, nothing did with
+    TRUST4_TPU_DEVICE=0 (the bench raises otherwise, and this phase holds
+    the record to it too); the import walls of the CLI alone, torch alone
+    and both are printed.  Then a shipping-mode CLI run whose input is
+    missing, so that extraction fails while the boot thread imports
+    torch: it must exit 1 with its FileNotFoundError, and nothing more at
+    the interpreter's shutdown.  Returns the bench's record."""
     record = os.path.join(work, "bench.json")
     env = dict(os.environ, T4BENCH_SCALE="0", T4BENCH_BARCODED="0")
     t0 = time.perf_counter()
@@ -2228,9 +2252,39 @@ def phase_bench(work: str) -> dict:
     if rec["bulk"]["held"] != 7:
         raise AssertionError(f"bench phase: {rec['bulk']['held']} of 8 runs "
                              "held")
+    for t in ("t1", f"t{os.cpu_count()}"):
+        boots = rec["bulk"][t]["device_boot"]
+        by = {m: sorted({b["loaded_by"] for b in v}) for m, v in boots.items()}
+        if by != {"default": ["trust4-gap-prewarm-cuda:0"], "off": ["none"]}:
+            raise AssertionError(f"bench phase: torch loaded by {by} at {t}")
+        print(f"bench boot {t}: torch loaded by the boot thread in every "
+              "default run, never in an off run; import on the thread "
+              f"{[b['import_s'] for b in boots['default']]} s, the main "
+              "thread's wait at the joins "
+              f"{[b['ready_wait_s'] for b in boots['default']]} s", flush=True)
+    walls = rec["import_wall_s"]
+    print("bench import walls (s, median of 3): " + json.dumps(
+        {k: float(np.median(v)) for k, v in walls.items()}), flush=True)
     print(f"bench: exit 0 in {wall:.1f}s, 7 of 8 timed bulk runs held "
           f"byte-identical to the first TRUST4_TPU_DEVICE=0 run; {last}",
           flush=True)
+
+    missing = os.path.join(work, "boot_missing")
+    r = subprocess.run(
+        [sys.executable, "-m", "trust4_tpu_torch", "run", "-u",
+         os.path.join(missing, "absent.fq"), "-f", coord, "--ref", imgt,
+         "-o", "m", "--od", missing],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, TRUST4_TPU_DEVICE="1"))
+    errors = [x for x in r.stderr.splitlines() if "Error" in x[:40]]
+    if r.returncode != 1 or len(errors) != 1 or \
+            not errors[0].startswith("FileNotFoundError") or \
+            "Fatal Python error" in r.stderr:
+        raise AssertionError(f"bench phase: a run failing in extraction "
+                             f"exited {r.returncode}: {r.stderr[-2000:]}")
+    print(f"bench: a shipping-mode run with a missing input exited "
+          f"{r.returncode} with its own error ({errors[0]}), nothing at "
+          "shutdown", flush=True)
     return rec
 
 
@@ -2429,7 +2483,21 @@ def phase_fuzz_asan_trace(work: str, coord: str, imgt: str, card: str):
                   "trace_lines": lines, "trace_wall_s": trace_wall}
 
 
+# Each phase's wall (s), printed before the kernels line.
+WALLS = {}
+
+
+def _timed(name: str, fn, *args):
+    """fn(*args), its wall kept in WALLS under name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        WALLS[name] = round(time.perf_counter() - t0, 1)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2437,11 +2505,11 @@ def main() -> int:
           flush=True)
     card = card_line()
     print(card, flush=True)
-    sass = phase_build()
-    counts_shapes = phase_kernels(sass)
+    sass = _timed("build", phase_build)
+    counts_shapes = _timed("kernels", phase_kernels, sass)
     tiers = [r for r in counts_shapes if r["shape"] == "chunk"]
-    shapes = phase_scores(sass)
-    entry_launches = phase_entry()
+    shapes = _timed("scores", phase_scores, sass)
+    entry_launches = _timed("entry", phase_entry)
 
     from trust4_tpu_torch.testing import write_standin_references
 
@@ -2453,22 +2521,26 @@ def main() -> int:
         prewarm = {"main": _join_prewarm("cuda")}
         print(f"prewarm: joined in the main process before its first "
               f"counted run, {prewarm['main']} launches", flush=True)
-        phase_gold(work, coord, imgt)
-        scale = phase_scale(work, coord, imgt, SCALE_READS)
-        realign_launches, realign_card = phase_realign(
-            os.path.join(work, "card", "bulk"), coord)
-        phase_prefilter(work, coord, imgt)
-        ranks = phase_ranks(work, coord, imgt, realign_card)
-        mode_launches, prewarm["deadline"] = phase_modes(work, coord, imgt,
-                                                         coord_bam)
+        _timed("gold", phase_gold, work, coord, imgt)
+        scale = _timed("scale", phase_scale, work, coord, imgt, SCALE_READS)
+        realign_launches, realign_card = _timed(
+            "realign", phase_realign, os.path.join(work, "card", "bulk"),
+            coord)
+        _timed("prefilter", phase_prefilter, work, coord, imgt)
+        ranks = _timed("ranks", phase_ranks, work, coord, imgt, realign_card)
+        mode_launches, prewarm["deadline"] = _timed(
+            "modes", phase_modes, work, coord, imgt, coord_bam)
         prewarm["ranks"] = ranks["prewarm_launches"]
-        phase_bench(work)
-        fuzz, asan = phase_fuzz_asan_trace(work, coord, imgt, card)
+        _timed("bench", phase_bench, work, coord, imgt)
+        fuzz, asan = _timed("fuzz_asan_trace", phase_fuzz_asan_trace, work,
+                            coord, imgt, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    dirs_launches, dirs_tiers, dirs_others = phase_dirs(sass)
-    lab = phase_lab(shapes[1], sass)
-    mb_launches, mb_cases = phase_microbench(sass)
+    dirs_launches, dirs_tiers, dirs_others = _timed("dirs", phase_dirs, sass)
+    lab = _timed("lab", phase_lab, shapes[1], sass)
+    mb_launches, mb_cases = _timed("microbench", phase_microbench, sass)
+    print(f"phase walls (s): {json.dumps(WALLS)}; the script so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # The kernel line reports the counts kernel's largest tier (the main
     # path's heaviest launches; every shape is in "shapes", the full

@@ -76,11 +76,52 @@ def test_every_part_ran_and_every_run_was_held(ran):
     assert "897k scale run skipped: T4BENCH_SCALE=0" in err
     assert rec["dp"]["cells_per_s"] > 0
     assert rec["extract_reads_per_s"] > 0
-    assert rec["import_wall_s"] and min(rec["import_wall_s"]) > 0
+    assert set(rec["import_wall_s"]) == {"cli", "torch", "both"}
+    for walls in rec["import_wall_s"].values():
+        assert len(walls) == 3 and min(walls) > 0
     for line in ("identity bulk: 3 of 4", "identity barcoded:",
                  "one launch from numpy", "tier-2 launch",
-                 "import wall"):
+                 "import wall cli", "import wall torch", "import wall both"):
         assert line in err, line
+
+
+def test_every_run_carries_its_boot_line(ran):
+    """Each timed run's [boot] line is in the record: in the shipping
+    mode the boot thread loaded torch, with TRUST4_TPU_DEVICE=0 nothing
+    did; every run's line is relayed."""
+    rec, _out, err, _work = ran
+    for t in ("t1", f"t{os.cpu_count()}"):
+        boots = rec["bulk"][t]["device_boot"]
+        assert len(boots["default"]) == len(boots["off"]) == 1
+        for b in boots["default"]:
+            assert b["loaded_by"] == bench.BOOT_THREAD + "cpu"
+            assert b["import_s"] > 0 and b["ready_wait_s"] >= 0
+        for b in boots["off"]:
+            assert b == {"loaded_by": "none", "import_s": 0.0,
+                         "ready_wait_s": 0.0}
+    # 4 bulk runs, the barcoded rep's 2 and its wedge reruns.
+    n_runs = 6 + len(rec["barcoded"]["wedged"])
+    assert err.count("[boot] torch_loaded_by=") == n_runs
+    assert err.count("[boot] torch_loaded_by=none ") == 3
+
+
+@pytest.mark.parametrize("mode,line,ok", [
+    ("0", "[boot] torch_loaded_by=none import_s=0.000 ready_wait_s=0.000",
+     True),
+    ("0", "[boot] torch_loaded_by=MainThread import_s=2.1 ready_wait_s=0",
+     False),
+    ("1", "[boot] torch_loaded_by=trust4-gap-prewarm-cuda:0 import_s=5.2 "
+     "ready_wait_s=0.4", True),
+    ("1", "[boot] torch_loaded_by=elsewhere import_s=0.000 "
+     "ready_wait_s=0.000", False),
+    ("1", "TRUST4 finishes.", False),
+])
+def test_device_boot_holds_each_mode(mode, line, ok):
+    if ok:
+        assert bench.device_boot("x\n" + line + "\n", mode)["import_s"] >= 0
+    else:
+        with pytest.raises(RuntimeError):
+            bench.device_boot(line, mode)
 
 
 def test_bench_corpus_equals_the_jax_package(ran, tmp_path, monkeypatch):

@@ -1,6 +1,8 @@
 """The port stands alone: importing any module of trust4_tpu_torch loads
 neither jax nor the JAX package nor the repository's ``tools`` package,
-and no source file (chip_smoke.py included) imports them."""
+and no source file (chip_smoke.py included) imports them.  The CLI, the
+pipeline, the fork pools and the gap oracle's front load no torch either
+(the device stack boots on the gap oracle's thread)."""
 
 import os
 import pkgutil
@@ -31,7 +33,8 @@ def test_every_module_imports_without_jax_or_trust4_tpu():
               "pipeline.run", "tools", "tools.dp_kernel_lab",
               "tools.vpu_microbench", "tools.fuzz_differential",
               "tools.asan_check", "tools.debug_trace_check",
-              "tools.make_bench_corpus", "utils.nativebuild",
+              "tools.make_bench_corpus", "tools.boot_order",
+              "utils.nativebuild",
               "ops.gap_oracle", "utils.parallel",
               "pipeline.smartseq", "pipeline.bam_extract", "io.bam_native",
               "testing", "cli", "bench"):
@@ -92,6 +95,24 @@ def test_no_source_imports_the_repo_tools_package():
             "k.startswith('tools.') or k == 'jax' or k.startswith('jax.') "
             "or k == 'trust4_tpu' or k.startswith('trust4_tpu.'))\n"
             "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_cli_pipeline_and_oracle_front_load_no_torch():
+    mods = ["trust4_tpu_torch.cli", "trust4_tpu_torch.pipeline.run",
+            "trust4_tpu_torch.pipeline.assembler",
+            "trust4_tpu_torch.pipeline.annotator",
+            "trust4_tpu_torch.pipeline.extract",
+            "trust4_tpu_torch.pipeline.report",
+            "trust4_tpu_torch.utils.parallel",
+            "trust4_tpu_torch.ops.gap_oracle"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'torch' not in sys.modules, sorted(\n"
+            "    k for k in sys.modules if k.startswith('torch'))[:5]\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr

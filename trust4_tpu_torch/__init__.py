@@ -6,7 +6,9 @@ extraction, de-novo contig assembly, IMGT annotation with CDR1/2/3 calls,
 clonotype reports), with the device work in PyTorch and CUDA kernels
 written by hand for an NVIDIA H100 (``csrc/``, built by ``ops/build.py``).
 Module names mirror ``trust4_tpu``.  The package imports torch, numpy and
-the standard library, never jax and never ``trust4_tpu``.
+the standard library, never jax and never ``trust4_tpu``.  The CLI, the
+pipeline and the gap oracle's front import no torch: the shipping mode
+imports it on the oracle's boot thread, and the CPU modes never do.
 
 Layer map:
   dna, io         — host-side sequence utilities and FASTQ/FASTA/BAM ingest

@@ -24,8 +24,15 @@ its part (``Held``): ``_raw.out``, ``_assembled_reads.fa``,
 ``_report.tsv`` and ``_airr.tsv`` after sorting; a difference raises and
 names the file.
 
-The other parts (stderr): the import wall (``import trust4_tpu_torch.cli,
-torch``), candidate extraction reads/s, the barcoded 5,000-cell A/B with
+Each of our runs prints its ``[boot]`` line (ops/gap_oracle.boot_line):
+the thread that loaded torch, that import's seconds and the main
+thread's wait at the gap batches' joins.  A TRUST4_TPU_DEVICE=0 run
+that loaded torch, or a shipping-mode run whose torch the boot thread
+did not load, raises.
+
+The other parts (stderr): the import walls (``import
+trust4_tpu_torch.cli`` alone, ``import torch`` alone, and the two
+together), candidate extraction reads/s, the barcoded 5,000-cell A/B with
 bench.py's wedge rule, the 897k-read / 20,000-cell scale run with its
 weather guard, and kernel #3's sustained cell rate with the host-input
 and tier-2 counts launches (a subprocess with a time limit).
@@ -244,19 +251,49 @@ def prebuild(device: str) -> None:
         f"{time.perf_counter() - t0:.1f}s (untimed)")
 
 
-def import_wall(n: int = 3) -> List[float]:
-    """The port's import wall, apart from a run's: ``python -c "import
-    trust4_tpu_torch.cli, torch"``, n times."""
-    walls = []
+# The import walls, apart from a run's: the CLI alone (torch-free: the
+# CPU modes' whole start-up), torch alone (what the boot thread imports),
+# and the two together (what every run paid before the boot thread).
+IMPORTS = {"cli": "import trust4_tpu_torch.cli", "torch": "import torch",
+           "both": "import trust4_tpu_torch.cli, torch"}
+
+
+def import_walls(n: int = 3) -> Dict[str, List[float]]:
+    """Each of IMPORTS as ``python -c``, n times, the three interleaved."""
+    walls: Dict[str, List[float]] = {k: [] for k in IMPORTS}
     for _ in range(n):
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c",
-                        "import trust4_tpu_torch.cli, torch"], check=True,
-                       cwd=REPO, timeout=300)
-        walls.append(time.perf_counter() - t0)
-    say(f"import wall (python -c 'import trust4_tpu_torch.cli, torch', "
-        f"{n} runs): {spread(walls)}")
+        for k, code in IMPORTS.items():
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", code], check=True,
+                           cwd=REPO, timeout=300)
+            walls[k].append(time.perf_counter() - t0)
+    for k, code in IMPORTS.items():
+        say(f"import wall {k} (python -c '{code}', {n} runs): "
+            f"{spread(walls[k])}")
     return walls
+
+
+# The run's [boot] line (ops/gap_oracle.boot_line).
+_BOOT = re.compile(r"\[boot\] torch_loaded_by=(\S+) import_s=([0-9.]+) "
+                   r"ready_wait_s=([0-9.]+)")
+BOOT_THREAD = "trust4-gap-prewarm-"
+
+
+def device_boot(text: str, mode: Optional[str]) -> dict:
+    """The run's boot line as a record, held to its mode: with
+    TRUST4_TPU_DEVICE=0 torch was never loaded; in the shipping mode the
+    boot thread loaded it (mode None: not held)."""
+    m = _BOOT.search(text)
+    if m is None:
+        raise RuntimeError("the run printed no [boot] line")
+    rec = {"loaded_by": m.group(1), "import_s": float(m.group(2)),
+           "ready_wait_s": float(m.group(3))}
+    if mode == MODES["off"] and rec["loaded_by"] != "none":
+        raise RuntimeError(f"a TRUST4_TPU_DEVICE=0 run loaded torch: {m[0]}")
+    if mode == MODES["default"] and \
+            not rec["loaded_by"].startswith(BOOT_THREAD):
+        raise RuntimeError(f"torch was not loaded by the boot thread: {m[0]}")
+    return rec
 
 
 def _stages(text: str) -> Dict[str, float]:
@@ -271,8 +308,9 @@ def run_ours(setup: Setup, mode: str, threads: int, prefix: str,
              timeout: int = 1800) -> dict:
     """The full CLI wall-clock, the surface a user invokes (the
     interpreter's boot included, as in bench.py), with TRUST4_TPU_DEVICE
-    = ``mode``; its [stage-time] walls and ``boot`` (the wall the stages
-    do not cover)."""
+    = ``mode``; its [stage-time] walls, ``boot`` (the wall the stages
+    do not cover) and ``device_boot`` (its [boot] line, held to the
+    mode)."""
     os.makedirs(os.path.dirname(prefix), exist_ok=True)
     cmd = [sys.executable, "-m", "trust4_tpu_torch", "run", "-u", reads,
            "-f", setup.coord, "--ref", setup.imgt,
@@ -290,7 +328,11 @@ def run_ours(setup: Setup, mode: str, threads: int, prefix: str,
                            f"{r.returncode}: {r.stderr[-2000:]}")
     stages = _stages(r.stderr)
     stages["boot"] = wall - sum(v for k, v in stages.items() if "/" not in k)
-    return {"wall_s": wall, "stages_s": stages, "prefix": prefix}
+    boot = device_boot(r.stderr, mode)
+    say(f"run {os.path.relpath(prefix, setup.work)} TRUST4_TPU_DEVICE={mode}"
+        f" -t{threads}: {wall:.3f}s; " + _BOOT.search(r.stderr)[0])
+    return {"wall_s": wall, "stages_s": stages, "prefix": prefix,
+            "device_boot": boot}
 
 
 def run_reference(setup: Setup, threads: int, prefix: str, reads: str,
@@ -357,8 +399,15 @@ def bench_bulk(setup: Setup, corpus: str, rounds: int) -> dict:
             say(f"bulk -t{threads} {c} stage medians: " + json.dumps(
                 {k: round(v, 3) for k, v in stages[c].items()
                  if "/" not in k}))
+        boots = {c: [r["device_boot"] for r in runs[c]] for c in MODES}
+        say(f"bulk -t{threads} default boot: torch's import on the boot "
+            "thread " + spread([b["import_s"] for b in boots["default"]])
+            + ", the main thread's wait at the joins " + spread(
+                [b["ready_wait_s"] for b in boots["default"]])
+            + "; off: torch never loaded")
         rec[f"t{threads}"] = {"walls_s": walls, "best_s": best,
-                              "median_s": med, "stage_medians_s": stages}
+                              "median_s": med, "stage_medians_s": stages,
+                              "device_boot": boots}
     rec["held"] = held.close()
     return rec
 
@@ -647,7 +696,7 @@ def _bench(args, work: str) -> dict:
     corpus = ensure_corpus(setup, args.reads)
     rec = {"device": args.device, "reads": args.reads,
            "references": "full" if full else "stand-ins",
-           "import_wall_s": import_wall()}
+           "import_wall_s": import_walls()}
     rec["bulk"] = bench_bulk(setup, corpus, args.rounds)
     rec["extract_reads_per_s"] = bench_extraction_reads_per_sec(setup, corpus)
     if _gate("T4BENCH_BARCODED"):

@@ -12,6 +12,7 @@ import sys
 import time
 from typing import List, Optional
 
+from trust4_tpu_torch.ops import gap_oracle
 from trust4_tpu_torch.pipeline.annotator import Annotator
 from trust4_tpu_torch.pipeline.assembler import Assembler
 from trust4_tpu_torch.pipeline.extract import run_barcoded_extractor, run_extractor
@@ -100,6 +101,18 @@ def run_trust4(
 
     enable_arena_reuse()
 
+    # The device stack's boot (ops/gap_oracle.py): torch's import, the
+    # card's check, the CUDA context, the counts kernel's build and load
+    # and a round trip per tier, on a thread while extraction and the
+    # assembly's host work run.  The first gap batch joins it, bounded,
+    # and raises what it raised (a missing card, a failed import), before
+    # anything of the assembly is written.  Started here, before
+    # extraction, the run measured faster than with the boot started
+    # after it (PERF.md section 6, tools/boot_order.py).  The CPU modes
+    # (TRUST4_TPU_DEVICE=0, auto) start nothing and never load torch.
+    if stage <= 2 and gap_oracle.enabled():
+        gap_oracle.prewarm(device)
+
     prefix = output_prefix
     paired = bool(read1_files)
     has_barcode = barcode_files is not None or (
@@ -176,17 +189,6 @@ def run_trust4(
     else:
         asm_reads = [prefix + "_toassemble.fq"]
         asm_mates = None
-
-    # Start the device work (CUDA context, the counts kernel's build and
-    # load, a round trip per tier) on a thread while the CPU stages run,
-    # as the JAX package starts its device child here; the first gap
-    # batch joins it, bounded (ops/gap_oracle.py).  A missing card stops
-    # the run here, before the assembly.
-    if stage <= 2:
-        from trust4_tpu_torch.ops import gap_oracle
-
-        if gap_oracle.enabled():
-            gap_oracle.prewarm(device)
 
     # Stage 1: assembly (run-trust4:506-508).
     if stage <= 1:
@@ -300,6 +302,8 @@ def run_trust4(
                     prefix + "_airr_align.tsv",
                 )
     _stamp("report")
+    if _STAGE_TIMES:
+        log(gap_oracle.boot_line())
 
     # --clean levels (run-trust4:569-582).
     if clean_level > 0:

@@ -6,14 +6,16 @@ independent (the shared SeqSet is read-only during these phases), so the
 parallel results are identical to the serial pass.  Fork workers inherit
 the index/profile state copy-on-write — no pickling of the SeqSet.
 
-The pools fork under ``FORK_LOCK``, which the gap oracle's prewarm thread
-(ops/gap_oracle.py) holds while it creates the CUDA context, builds and
-launches: a worker forked then could inherit a lock of CUDA or of the
-allocator taken by that thread, and hang.  So a fork waits for a running
-prewarm, and a prewarm waits for a running pool.  A pool waits no longer
-than the prewarm's own deadline, TRUST4_TPU_DEVICE_READY_TIMEOUT_S
-(default 300): a prewarm wedged in CUDA raises the gap oracle's
-``GapDeviceTimeout`` out of the fork site instead of hanging it.
+The pools fork under ``FORK_LOCK``, which the gap oracle's boot thread
+(ops/gap_oracle.py) holds while it imports torch, creates the CUDA
+context, builds and launches: a worker forked then could inherit an
+import lock, a half-loaded torch, or a lock of CUDA or of the allocator
+taken by that thread, and hang.  So a fork waits for a running boot, and
+a boot waits for a running pool.  A pool waits no longer than the boot's
+own deadline, TRUST4_TPU_DEVICE_READY_TIMEOUT_S (default 300): a boot
+wedged in the import or in CUDA raises the gap oracle's
+``GapDeviceTimeout`` out of the fork site instead of hanging it.  The
+names come from the oracle's torch-free front, so a pool loads no torch.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def _fork_lock():
     t0 = time.monotonic()
     if not lock.acquire(timeout=limit):
         raise GapDeviceTimeout(
-            f"fork pool: the gap DP prewarm held the fork lock past "
+            f"fork pool: the gap DP boot held the fork lock past "
             f"{READY_TIMEOUT_ENV}={limit:g} s (waited "
             f"{time.monotonic() - t0:.3f} s)")
     try:
