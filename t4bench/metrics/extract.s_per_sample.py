@@ -1,0 +1,7 @@
+"""Extraction's wall per sample: the program's ``[stage-time] extract``."""
+
+from t4bench.readers import mean_stage
+
+
+def read(record):
+    return mean_stage(record, ["extract"])

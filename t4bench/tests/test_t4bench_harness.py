@@ -1,0 +1,134 @@
+"""The harness driven on the CPU: it refuses to run without a card; with
+the look for a card skipped and the program in a CPU mode, a sound run
+is correct and a run with the timed path broken underneath is not."""
+
+import gzip
+import os
+import subprocess
+import sys
+
+import pytest
+
+from t4bench import run
+from t4bench_common import ROOT, bench_limits, tiny_cell
+
+# The limits of the tiny cells: the rich bulk cell's.
+LIMITS = {c: bench_limits() for c in ("bulk-se", "sc-10x-5p")}
+
+
+def test_exits_nonzero_without_a_card():
+    out = subprocess.run(
+        [sys.executable, "-m", "t4bench.run", "--workload",
+         "bulk-se.receptor-rich", "--seed", "4000000001", "--seconds", "1",
+         "--trace", "0"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode != 0
+    assert "{" not in out.stdout
+    assert "t4bench:" in out.stderr
+
+
+def test_exits_nonzero_without_the_program(tmp_path):
+    """In a directory that holds only BENCHMARK.json and t4bench/."""
+    from t4bench_common import copy_bench
+
+    root = copy_bench(str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-m", "t4bench.run", "--workload",
+         "bulk-se.receptor-rich", "--seed", "4000000002", "--seconds", "1",
+         "--trace", "0"], cwd=root, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0
+    assert "{" not in out.stdout
+
+
+def test_card_check_after_the_cold_sample(tmp_path):
+    """With the kernel build skipped, the cold sample reaches the card
+    and the run stops at the look for it."""
+    code = (
+        "import sys; sys.path.insert(0, 't4bench/tests')\n"
+        "from t4bench_common import ROOT, tiny_cell\n"
+        "from t4bench import run\n"
+        f"cell = tiny_cell({str(tmp_path)!r}, 'bulk-se', {{}})\n"
+        "try:\n"
+        "    run.run_cell(cell, 3, 1, False, compile_kernels=False)\n"
+        "except run.HarnessError as e:\n"
+        "    print('refused:', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert "refused: torch.cuda.is_available() is False" in out.stdout, \
+        out.stderr[-3000:]
+
+
+def _cpu_run(tmp_path, config, wrap=None, seed=2 ** 31 + 5):
+    cell = tiny_cell(str(tmp_path), config, LIMITS[config])
+    return run.run_cell(cell, seed, 0.5, False, device="cpu",
+                        compile_kernels=False, wrap=wrap)
+
+
+@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+def test_sound_run_is_correct(tmp_path, monkeypatch, config):
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    r = _cpu_run(tmp_path, config)
+    assert r["correct"], r["checks"]
+    assert r["failed"] == 0 and r["attempted"] >= 1
+    assert set(r["metrics"]) == {"reads_per_s", "setup_s"}
+    assert list(r)[-3:] == ["checks", "_error", "_walls"]
+
+
+def _unchanged(fn):
+    """A step that returns its state unchanged: nothing is run."""
+    def step(*a, **k):
+        return None
+    return step
+
+
+def _half(fn):
+    """Half of the batch left out: the sample's first half of reads."""
+    def step(coord, imgt, **kw):
+        for key in ("single_files", "barcode_files"):
+            if kw.get(key):
+                src = kw[key][0]
+                dst = os.path.join(os.path.dirname(kw["output_prefix"]),
+                                   os.path.basename(src))
+                with gzip.open(src, "rt") as f:
+                    lines = f.read().split("\n")
+                n = len(lines) // 4
+                with gzip.open(dst, "wt") as f:
+                    f.write("\n".join(lines[:4 * (n // 2)]) + "\n")
+                kw[key] = [dst]
+        return fn(coord, imgt, **kw)
+    return step
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half],
+                         ids=["unchanged", "half"])
+@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+def test_fault_is_not_correct(tmp_path, monkeypatch, config, fault):
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    r = _cpu_run(tmp_path, config, wrap=fault)
+    assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+def test_altered_cdr3_is_not_correct(tmp_path, monkeypatch, config):
+    """An answer altered where it is produced: the annotator writes each
+    CDR3 with its fourth base changed."""
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    from trust4_tpu_torch.pipeline.annotator import Annotator
+
+    real = Annotator.realign_and_write_cdr3
+
+    def altered(self, reads_path, cdr3_path, *a, **k):
+        real(self, reads_path, cdr3_path, *a, **k)
+        with open(cdr3_path) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+        with open(cdr3_path, "w") as f:
+            for r in rows:
+                if len(r) > 8 and len(r[8]) > 3:
+                    r[8] = r[8][:3] + "ACGTA"["ACGT".find(r[8][3]) + 1] \
+                        + r[8][4:]
+                f.write("\t".join(r) + "\n")
+
+    monkeypatch.setattr(Annotator, "realign_and_write_cdr3", altered)
+    r = _cpu_run(tmp_path, config)
+    assert not r["correct"], r["checks"]

@@ -1,0 +1,80 @@
+"""The reference against the port's CPU runs and against the control:
+the reference put in the program's place passes at the configuration's
+precision (2 bits a base) and fails one bit below."""
+
+import pytest
+
+from t4bench import run
+from t4bench.reference import control, judge
+from t4bench_common import bench_limits, tiny_cell
+
+# The limits of the tiny cells: the rich bulk cell's.
+LIMITS = {c: bench_limits() for c in ("bulk-se", "sc-10x-5p")}
+
+
+@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+def test_control_at_both_precisions(tmp_path, config):
+    cell = tiny_cell(str(tmp_path), config, LIMITS[config])
+    exact = control.control(cell, 2 ** 31 + 9, 2, str(tmp_path / "two"))
+    assert exact == {k: 0.0 for k in judge.NUMBERS}
+    low = control.control(cell, 2 ** 31 + 9, 1, str(tmp_path / "one"))
+    failed = {k for k in judge.NUMBERS if low[k] > cell.limits[k]}
+    # At one bit a base the reference keeps every read it kept and more,
+    # each written with other bases, and no contig lies on a template base
+    # for base (so no V call is judged): every number but v_call_wrong
+    # fails.
+    assert failed == set(judge.NUMBERS) - {"v_call_wrong"}, low
+
+
+def test_shipping_path_on_the_cpu_is_correct(tmp_path, monkeypatch):
+    """The collect-oracle path with its plain PyTorch DP (the card's path
+    short of the kernel) agrees with the reference."""
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    cell = tiny_cell(str(tmp_path), "bulk-se", LIMITS["bulk-se"])
+    r = run.run_cell(cell, 2 ** 31 + 21, 0.5, False, device="cpu",
+                     compile_kernels=False)
+    assert r["correct"], r["checks"]
+
+
+def test_swapped_gap_counts_are_not_correct(tmp_path, monkeypatch):
+    """The counts kernel's answer altered where it is produced: the
+    shipping path on the CPU with match and mismatch swapped calls other
+    V alleles, which ``v_call_wrong`` sees."""
+    from t4bench import faults
+    from trust4_tpu_torch.ops import dp_counts
+
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    monkeypatch.setattr(dp_counts, "banded_affine_counts",
+                        dp_counts.banded_affine_counts)
+    faults.swap_counts()
+    cell = tiny_cell(str(tmp_path), "bulk-se", LIMITS["bulk-se"])
+    r = run.run_cell(cell, 2 ** 31 + 21, 0.5, False, device="cpu",
+                     compile_kernels=False)
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["v_call_wrong"]["value"] > \
+        r["checks"]["v_call_wrong"]["limit"], r["checks"]
+
+
+def test_cdr3_from_the_table_matches_the_planted(tmp_path):
+    from t4bench.data import standin
+    from t4bench.traffic import generator
+
+    cell = tiny_cell(str(tmp_path), "sc-10x-5p", LIMITS["sc-10x-5p"])
+    table = judge.imgt_table(standin.IMGT_TABLE)
+    for s in generator.generate_pool(cell.config, cell.mix, 8,
+                                     str(tmp_path / "pool")):
+        for c in s["clones"]:
+            assert judge.cdr3_of(c, table) == c["cdr3"]
+
+
+def test_frozen_references_are_the_ports(tmp_path):
+    """The frozen writer and tables give the FASTAs the port's tests
+    load (trust4_tpu_torch.testing over tests/data)."""
+    from t4bench.data import standin
+    from trust4_tpu_torch import testing
+
+    ours = standin.write_references(str(tmp_path / "ours"))
+    theirs = testing.write_standin_references(str(tmp_path / "theirs"))
+    for a, b in zip(ours, theirs):
+        with open(a) as fa, open(b) as fb:
+            assert fa.read() == fb.read()
