@@ -10,8 +10,8 @@ spans it left in the store and gap_oracle.STATS are held here:
 - the lines of the stages and sub-stages keep their names, indentation
   and order;
 - every span's parent encloses it, and the two calls are samples 1 and 2;
-- extraction's children add up to ``extract``, and the gap path's spans
-  lie inside the two batches;
+- extraction's children on the calling thread add up to ``extract``,
+  and the gap path's spans lie inside the two batches;
 - STATS ``band_cells`` is counted while recording, and only then.
 
 Besides: the recorder alone reads the switch, and ``dp_counts.band_cells``
@@ -70,7 +70,8 @@ BEFORE = [
     (2, "ann/realign"), (0, "annotate"), (0, "report"),
 ]
 NEW = {"extract/prepare", "extract/read", "extract/filter", "extract/write",
-       "extract/release", "gaps/collect", "gaps/oracle", "gaps/consume"}
+       "extract/release", "extract/read_wait", "gaps/collect", "gaps/oracle",
+       "gaps/consume"}
 _LINE = re.compile(r"^\[stage-time\] ( *)(\S+): [0-9.]+s$")
 
 
@@ -126,7 +127,8 @@ def test_the_stage_lines_keep_their_names_and_order(runs, k):
     new = {n: i for i, n in got if n in NEW}
     assert new == {"extract/prepare": 2, "extract/read": 2,
                    "extract/filter": 2, "extract/write": 2,
-                   "extract/release": 2, "gaps/collect": 6,
+                   "extract/release": 2, "extract/read_wait": 2,
+                   "gaps/collect": 6,
                    "gaps/oracle": 6, "gaps/consume": 6}
     # Every span with a line printed one, at its close.
     printed = [s for s in runs[k]["spans"] if s["thread"] == "MainThread"
@@ -163,12 +165,16 @@ def test_two_calls_are_samples_one_and_two(runs):
 def test_extractions_children_add_up(runs):
     """In the second call: in the first, the boot thread imports torch
     beside extraction and can hold the GIL for 100 ms and more at a time
-    (a library's load), which stalls the code between the spans."""
+    (a library's load), which stalls the code between the spans.  The
+    parts are the calling thread's: the native stream's reader thread
+    reads beside the filter, and the caller's wait for it is
+    ``extract/read_wait``."""
     run = runs[1]
     (ext,) = _by_name(run, "extract")
     parts = sum(_by_name(run, "extract/" + p)[0]["ns"] for p in
-                ("prepare", "read", "filter", "write", "release"))
+                ("prepare", "read_wait", "filter", "write", "release"))
     assert abs(parts - ext["ns"]) <= 0.05 * ext["ns"], (parts, ext["ns"])
+    assert _by_name(run, "extract/read")[0]["ns"] <= ext["ns"]
 
 
 @pytest.mark.parametrize("k", [0, 1])

@@ -18,7 +18,9 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <condition_variable>
 #include <map>
+#include <mutex>
 #include <string>
 #include <thread>
 #include <unordered_map>
@@ -949,12 +951,12 @@ void write_rec(FILE *out, const Rec &r) {
   }
 }
 
-// The stream's three phases (read, filter, write): each lap() adds the
-// time since the previous one to a phase, so a batch costs three clock
-// reads.  steady_clock is CLOCK_MONOTONIC on Linux, the clock of
-// Python's time.perf_counter().
+// The stream's phases (read, filter, write, and the bulk stream's wait for
+// a read batch): each lap() adds the time since the previous one to a
+// phase, so a batch costs a clock read a phase.  steady_clock is
+// CLOCK_MONOTONIC on Linux, the clock of Python's time.perf_counter().
 struct PhaseClock {
-  int64_t ns[3] = {0, 0, 0};
+  int64_t ns[4] = {0, 0, 0, 0};
   int64_t t = now();
   static int64_t now() {
     return std::chrono::duration_cast<std::chrono::nanoseconds>(
@@ -966,9 +968,92 @@ struct PhaseClock {
     ns[phase] += t1 - t;
     t = t1;
   }
-  void report(int64_t *out) const {
+  void report(int64_t *out, int n = 3) const {
     if (out)
-      for (int i = 0; i < 3; i++) out[i] = ns[i];
+      for (int i = 0; i < n; i++) out[i] = ns[i];
+  }
+};
+
+// The bulk stream's read side: one thread fills a ring of two batch slots
+// (records parsed into a slot's strings in place, never copied) while the
+// caller filters and writes the other.  A slot with n == 0 ends the
+// stream; the reader publishes it and returns.  Two slots, not more: a
+// slot's first fill touches fresh memory and costs several times a
+// refill, so each further slot adds a slow fill at the stream's start.
+struct ReadAhead {
+  static const int BATCH = 16384, SLOTS = 2;
+  struct Slot {
+    std::vector<Rec> b1, b2;
+    int n = 0;
+  };
+  RecStream &s1;
+  RecStream *s2;
+  Slot ring[SLOTS];
+  std::mutex mu;
+  std::condition_variable cv;
+  int64_t filled = 0, taken = 0;  // slots published / handed back
+  bool stop = false;
+  int64_t busy_ns = 0;  // the reader's own time
+  std::thread th;
+
+  ReadAhead(RecStream &a, RecStream *b) : s1(a), s2(b) {
+    th = std::thread([this] { run(); });
+  }
+  ~ReadAhead() { join(); }
+
+  // Stops the reader (it returns at its next wait) and joins it; returns
+  // its busy time.
+  int64_t join() {
+    {
+      std::lock_guard<std::mutex> g(mu);
+      stop = true;
+    }
+    cv.notify_all();
+    if (th.joinable()) th.join();
+    return busy_ns;
+  }
+
+  void run() {
+    for (int64_t k = 0;; k++) {
+      {
+        std::unique_lock<std::mutex> g(mu);
+        cv.wait(g, [&] { return stop || k - taken < SLOTS; });
+        if (stop) return;
+      }
+      int64_t t0 = PhaseClock::now();
+      Slot &s = ring[k % SLOTS];
+      if (k < SLOTS) {  // a slot's records are made at its first use
+        s.b1.resize(BATCH);
+        if (s2) s.b2.resize(BATCH);
+      }
+      int n = 0;
+      while (n < BATCH && s1.next(s.b1[n])) {
+        if (s2 && !s2->next(s.b2[n])) break;  // ragged pair -> stop like zip()
+        n++;
+      }
+      s.n = n;
+      busy_ns += PhaseClock::now() - t0;
+      {
+        std::lock_guard<std::mutex> g(mu);
+        filled = k + 1;
+      }
+      cv.notify_all();
+      if (n == 0) return;
+    }
+  }
+  // Batch k, once the reader has filled it.
+  Slot &wait(int64_t k) {
+    std::unique_lock<std::mutex> g(mu);
+    cv.wait(g, [&] { return filled > k; });
+    return ring[k % SLOTS];
+  }
+  // Batch k's slot back to the reader.
+  void release(int64_t k) {
+    {
+      std::lock_guard<std::mutex> g(mu);
+      taken = k + 1;
+    }
+    cv.notify_all();
   }
 };
 
@@ -979,10 +1064,13 @@ extern "C" {
 // Stream paths1 (newline-joined; paths2 NULL or same count for paired),
 // filter with the existing handle's index (candidate = either mate passes,
 // mate tested only when the first fails), write survivors in input order
-// to out1/out2.  Returns candidate count, or -1 on I/O failure.  phase_ns
-// (NULL or 3 slots) receives the nanoseconds spent reading (opening,
-// inflating and parsing, one thread), filtering (threads) and writing
-// (closing included).
+// to out1/out2.  Returns candidate count, or -1 on I/O failure.  A reader
+// thread inflates and parses batch k+1 while `threads` workers filter
+// batch k.  phase_ns (NULL or 4 slots) receives the nanoseconds spent
+// reading (opening, then the reader thread's inflating and parsing),
+// filtering (threads), writing (closing included) and, on the calling
+// thread, waiting for a read batch (the opening included): the calling
+// thread's time is the last three.
 int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
                            const char *out1, const char *out2, int threads,
                            int64_t *phase_ns) {
@@ -1003,20 +1091,19 @@ int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
     delete s2;
     return -1;
   }
+  clock.lap(3);
+  int64_t open_ns = clock.ns[3];
 
-  const int BATCH = 16384;
-  std::vector<Rec> b1(BATCH), b2(s2 ? BATCH : 0);
-  std::vector<int8_t> good(BATCH);
+  std::vector<int8_t> good(ReadAhead::BATCH);
   int64_t kept = 0;
+  ReadAhead ra(s1, s2);
 
-  for (;;) {
-    int n = 0;
-    while (n < BATCH && s1.next(b1[n])) {
-      if (s2 && !s2->next(b2[n])) break;  // ragged pair -> stop like zip()
-      n++;
-    }
-    clock.lap(0);
+  for (int64_t k = 0;; k++) {
+    ReadAhead::Slot &slot = ra.wait(k);
+    clock.lap(3);
+    int n = slot.n;
     if (n == 0) break;
+    const std::vector<Rec> &b1 = slot.b1, &b2 = slot.b2;
 
     auto work = [&](int lo, int hi) {
       std::vector<Hit> buf;
@@ -1048,14 +1135,17 @@ int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
       if (s2) write_rec(o2, b2[i]);
       kept++;
     }
+    ra.release(k);
     clock.lap(2);
   }
+  clock.ns[0] = open_ns + ra.join();
+  clock.lap(3);
 
   fclose(o1);
   if (o2) fclose(o2);
   delete s2;
   clock.lap(2);
-  clock.report(phase_ns);
+  clock.report(phase_ns, 4);
   return kept;
 }
 

@@ -238,10 +238,13 @@ def extract_candidates(
 
 def stream_phases(native) -> None:
     """The native stream's phases as the spans' counters extract/read
-    (opening, inflating and parsing, one thread), extract/filter (the
-    candidate test, on the threads) and extract/write (closing
-    included)."""
-    for name, ns in zip(("read", "filter", "write"), native.phase_ns):
+    (opening, inflating and parsing, one thread: in the bulk stream its
+    reader thread, beside the filter), extract/filter (the candidate
+    test, on the threads), extract/write (closing included) and, from the
+    bulk stream, extract/read_wait (the calling thread waiting for a read
+    batch)."""
+    for name, ns in zip(("read", "filter", "write", "read_wait"),
+                        native.phase_ns):
         spans.counter("extract/" + name, ns)
 
 

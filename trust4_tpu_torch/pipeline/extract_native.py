@@ -105,7 +105,9 @@ class NativeCandidateFilter:
     """is_good_candidate over read batches, bit-identical to the host path.
 
     ``phase_ns``: the last stream's nanoseconds reading (opening,
-    inflating, parsing), filtering and writing (closing included)."""
+    inflating, parsing), filtering and writing (closing included); the
+    bulk stream adds a fourth, the calling thread's wait for its reader
+    thread's batches."""
 
     def __init__(self, ref_seqs: List[str], kmer_length: int, radius: int,
                  hit_len_required: int):
@@ -138,10 +140,12 @@ class NativeCandidateFilter:
                        threads: int = 1) -> int:
         """Full extraction loop in native code (read -> filter -> write,
         input order preserved; FastqExtractor.cpp:549-724 batched flow).
-        Returns the candidate count, or raises on I/O failure."""
+        A reader thread inflates and parses the next batch while the
+        filter runs this one.  Returns the candidate count, or raises on
+        I/O failure."""
         j1 = "\n".join(paths1).encode()
         j2 = "\n".join(paths2).encode() if paths2 else None
-        ns = (ctypes.c_int64 * 3)()
+        ns = (ctypes.c_int64 * 4)()
         n = self._lib.t4x_extract_stream(
             self._h, j1, j2, out1.encode(),
             out2.encode() if out2 else None, threads, ns,
