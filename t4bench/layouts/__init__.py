@@ -4,19 +4,36 @@ name.  A layout module provides
 
 ``generate(rng, cfg, mix, pools, out_dir) -> sample``
     one sample's reads written under ``out_dir`` and what it planted
-    (``files``, ``reads``: the cDNA FASTQ, ``n_reads``, ``clones``,
+    (``files``, ``reads``: the cDNA FASTQ or the mates' FASTQs,
+    ``n_reads`` (every mate counted), ``clones``,
     ``read_clone``, ``read_start``, ``read_group``: the group a read's
-    chain is judged in, such as its cell, or None);
+    chain is judged in, such as its cell, or None; for reads in pairs,
+    ``fragment_max``: the longest fragment, the widest gap that a contig
+    scaffolded by mates may span);
 ``run_args(sample) -> dict``
     the input keywords of ``run_trust4`` for the sample;
 ``OUTPUTS``
-    the output files (suffixes of the prefix) the judge reads;
+    the output files (suffixes of the prefix) the judge reads; those
+    named ``_toassemble*.fq`` hold the extracted reads, the read table
+    in equal shares, one a file, in order (``judge.extraction_files``);
 ``wrong_barcodes(prefix, sample, kept) -> int``
     kept reads written with another group's barcode;
 ``reported(prefix, sample) -> {group: [(cdr3, v_calls, j_calls)]}``
     the chains the program's report gives each group;
 ``write_report(prefix, sample, kept, cdr3, reduce)``
     the control's answers written as the program's report files.
+
+and may provide, where its reads are not one single-end FASTQ
+(``reference/judge.py``'s ``hook`` gives the single-end default):
+
+``read_table(sample) -> (n, L) uint8``
+    the reference's table of input reads, one row a read, in the order
+    of ``read_clone`` and ``read_start``, such as both mates' files
+    (default: the rows of the one FASTQ ``sample["reads"]``);
+``keep(sample, hit) -> bool (n,)``
+    the reads the reference keeps, from whether each row itself shares
+    a K-mer with the coordinate genes, such as every mate of a fragment
+    of which either mate does (default: ``hit``).
 
 Code shared by every layout tests no layout's name."""
 

@@ -4,8 +4,10 @@ For each sample of a cell's pool the reference's own answers are written
 as the program's output files, computed at ``--resolution`` bits a base,
 and judged as a run's would be:
 
-* ``_toassemble.fq``: the reads the reference keeps (judge.py's rule on
-  the sequences read at that resolution);
+* the extraction files (``judge.extraction_files``: the layout's
+  ``_toassemble*.fq`` outputs): the reads the reference keeps (judge.py's
+  rule on the sequences read at that resolution, and the layout's
+  ``keep``), each named as its input names it, in its own file;
 * ``_annot.fa``: every planted template as a contig, its header naming
   the planted V allele and CDR3;
 * the layout's report files (``write_report`` of
@@ -43,12 +45,17 @@ def write_outputs(sample: dict, prefix: str, genes: np.ndarray,
                   table: dict, resolution: int, layout) -> None:
     """The reference's answers for ``sample`` at ``resolution``, written
     as the program's files at ``prefix``."""
-    reads = judge.read_fastq_seqs(sample["reads"])
-    kept = np.nonzero(judge.expected_kept(reads, genes, resolution))[0]
-    with open(prefix + "_toassemble.fq", "w") as f:
-        for i in kept:
-            seq = judge.reduce(reads[i].tobytes().decode(), resolution)
-            f.write(f"@r{i:09d}\n{seq}\n+\n{'I' * len(seq)}\n")
+    reads = judge.hook(layout, "read_table")(sample)
+    kept = np.nonzero(judge.hook(layout, "keep")(
+        sample, judge.expected_kept(reads, genes, resolution)))[0]
+    # Each file holds the table's rows from its first to the next file's.
+    files = judge.extraction_files(layout, prefix, len(reads))
+    ends = [first for _path, first in files[1:]] + [len(reads)]
+    for (path, first), end in zip(files, ends):
+        with open(path, "w") as f:
+            for i in kept[(kept >= first) & (kept < end)]:
+                seq = judge.reduce(reads[i].tobytes().decode(), resolution)
+                f.write(f"@r{i - first:09d}\n{seq}\n+\n{'I' * len(seq)}\n")
     clones = sample["clones"]
     cdr3 = [judge.reduce(judge.cdr3_of(c, table), resolution)
             for c in clones]

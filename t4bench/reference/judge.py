@@ -11,9 +11,12 @@ Per sample it computes five numbers, each a share (0 is perfect):
 
 ``extract_missed``  reads the reference keeps that extraction dropped.
     The reference keeps a read when it or its reverse complement shares
-    a ``K``-mer with a sequence of the coordinate FASTA.  The number is
-    the reads it keeps that the program's ``_toassemble.fq`` lacks or
-    writes with other bases than the input's (either strand), and kept
+    a ``K``-mer with a sequence of the coordinate FASTA (for mates, when
+    either mate of its fragment does: the layout's ``keep``).  The number
+    is the reads it keeps that the program's extraction files (the
+    layout's ``OUTPUTS`` named ``_toassemble*.fq``: ``extraction_files``)
+    lack or write with other bases than the input's (either strand), and
+    kept
     reads written with another cell's barcode, over the reads the
     reference keeps.
 ``extract_extra``  reads extraction kept that the reference does not,
@@ -39,12 +42,21 @@ Per sample it computes five numbers, each a share (0 is perfect):
     is off when no placement inside a planted template of the sample
     (either strand, at an offset where they share a ``K``-mer) differs
     from it in at most ``CONTIG_MISMATCH`` of its bases: the templates
-    carry no indels, so a contig of their reads lies on one diagonal.  Off
-    contigs over all.
+    carry no indels, so a contig of their reads lies on one diagonal.
+    Where the reads come in pairs (the sample names its ``fragment_max``),
+    a contig that mate scaffolding joined across a gap (``GAP_N`` or more
+    N) is placed piece by piece: in order on one strand of one template,
+    each piece starting at most ``fragment_max`` bases past the end of
+    the one before.  Off contigs over all.
 
 The reference judges at the configuration's precision, one base of four.
 ``resolution=1`` computes its answers at one bit a base (purine or
 pyrimidine), the precision below: the control (control.py).
+
+The input reads are a table of rows (the layout's ``read_table``; by
+default the one FASTQ ``sample["reads"]``), each with its ``read_clone``
+and ``read_start``; a layout without its own hook reads and judges as a
+single-end one (``hook``).
 """
 
 from __future__ import annotations
@@ -64,6 +76,10 @@ CONTIG_MISMATCH = 0.05
 NUMBERS = ("extract_missed", "extract_extra", "clone_miss", "v_call_wrong",
            "contig_off")
 _CDR3_FIELD = re.compile(r"CDR3\((\d+)-(\d+)\):[0-9.]+=([ACGTN]+)")
+# TRUST4's gapN: the run of N that mate scaffolding puts where it joins
+# two contigs across a gap of unknown length.
+GAP_N = 7
+_GAP = re.compile("N{%d,}" % GAP_N)
 
 _CODE = np.full(256, 255, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -187,6 +203,35 @@ def _member(codes: np.ndarray, table: np.ndarray) -> np.ndarray:
     return hit
 
 
+def _one_table(sample: dict) -> np.ndarray:
+    return read_fastq_seqs(sample["reads"])
+
+
+def _each_alone(sample: dict, hit: np.ndarray) -> np.ndarray:
+    return hit
+
+
+# What a layout module that lacks a hook (layouts/__init__.py) gets: one
+# single-end FASTQ, each read kept on its own hit.
+_DEFAULT_HOOKS = {"read_table": _one_table, "keep": _each_alone}
+
+
+def hook(layout, name: str):
+    """The layout module's own ``name``, or the single-end default."""
+    return getattr(layout, name, _DEFAULT_HOOKS[name])
+
+
+def extraction_files(layout, prefix: str, n_rows: int) -> List[tuple]:
+    """The program's files of extracted reads, the layout's ``OUTPUTS``
+    named ``_toassemble*.fq``, each with the first row of the read table
+    that it holds: the table splits into one equal share a file, in
+    order, and a record named r<i> in a file is its row first + i."""
+    names = [o for o in layout.OUTPUTS
+             if o.startswith("_toassemble") and o.endswith(".fq")]
+    return [(prefix + o, k * n_rows // len(names))
+            for k, o in enumerate(names)]
+
+
 def cdr3_of(clone: dict, table: Dict[str, tuple]) -> str:
     """The planted chain's CDR3 worked out from its template and the IMGT
     table's anchors: the V allele's Cys codon through the J allele's
@@ -225,8 +270,9 @@ class Reference:
         self.sample = sample
         self.table = table
         self.layout = layout
-        self.reads = read_fastq_seqs(sample["reads"])
-        self.kept = expected_kept(self.reads, genes)
+        self.reads = hook(layout, "read_table")(sample)
+        self.kept = hook(layout, "keep")(sample,
+                                         expected_kept(self.reads, genes))
         clones = sample["clones"]
         self.cdr3 = [cdr3_of(c, table) for c in clones]
         rc, st = sample["read_clone"], sample["read_start"]
@@ -288,12 +334,16 @@ class Reference:
     def _extract(self, prefix: str) -> tuple:
         got = np.zeros(len(self.kept), bool)
         names, seqs = [], []
-        with open(prefix + "_toassemble.fq") as f:
-            for i, line in enumerate(f):
-                if i % 4 == 0:
-                    names.append(int(line[2:].split()[0].split("/")[0]))
-                elif i % 4 == 1:
-                    seqs.append(line.rstrip("\n"))
+        # A record named r<i> in a file is the table's row first + i.
+        for path, first in extraction_files(self.layout, prefix,
+                                            len(self.reads)):
+            with open(path) as f:
+                for i, line in enumerate(f):
+                    if i % 4 == 0:
+                        names.append(first + int(
+                            line[2:].split()[0].split("/")[0]))
+                    elif i % 4 == 1:
+                        seqs.append(line.rstrip("\n"))
         got[names] = True
         # A read is extracted when it is written with its input's bases.
         same = np.zeros(len(self.kept), bool)
@@ -402,10 +452,37 @@ class Reference:
 
     def _placed(self, contig: str) -> bool:
         """Whether ``contig`` lies inside a template within
-        CONTIG_MISMATCH of its bases."""
-        rows = _rows_of([contig])
+        CONTIG_MISMATCH of its bases.  Where the reads come in pairs, mate
+        scaffolding may have joined two contigs across a gap of unknown
+        length, GAP_N or more N standing in it: such a contig lies there
+        piece by piece, each piece within CONTIG_MISMATCH of its own bases,
+        all on one strand of one template, each starting past the start of
+        the one before and at most ``fragment_max`` bases past its end (a
+        pair spans the gap)."""
+        top = self.sample.get("fragment_max")
+        if top is None:
+            return next(self._spots(contig), None) is not None
+        pieces = [p for p in _GAP.split(contig.upper()) if p]
+        return bool(pieces) and any(
+            self._follow(pieces[1:], w, a, a + len(pieces[0]), top)
+            for w, a in self._spots(pieces[0]))
+
+    def _follow(self, pieces: List[str], w: int, start: int, end: int,
+                top: int) -> bool:
+        """Whether ``pieces`` lie in order on strand ``w``, the first
+        starting past ``start`` and at most ``top`` bases past ``end``."""
+        return not pieces or any(
+            start < a <= end + top
+            and self._follow(pieces[1:], w, a, a + len(pieces[0]), top)
+            for v, a in self._spots(pieces[0]) if v == w)
+
+    def _spots(self, piece: str):
+        """Each (strand, offset) at which ``piece`` lies within
+        CONTIG_MISMATCH of its bases, among those where they share a
+        K-mer."""
+        rows = _rows_of([piece])
         if not rows:
-            return False
+            return
         seq = rows[0][0]
         codes = _kmer_codes(rows[0], 2).ravel()
         lo = np.searchsorted(self._codes, codes, "left")
@@ -425,8 +502,7 @@ class Reference:
                     continue
                 diff = int((tpl[a + lo_c: a + hi_c] != seq[lo_c:hi_c]).sum())
                 if diff + lo_c + (len(seq) - hi_c) <= allowed:
-                    return True
-        return False
+                    yield key
 
 
 def reduce(seq: str, resolution: int) -> str:

@@ -11,6 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 TINY = {
     "bulk-se": {"reads_per_sample": 4000, "receptor_share": 0.25,
                 "clones": 20, "pool": 2},
+    "bulk-pe": {"fragments_per_sample": 2000, "receptor_share": 0.25,
+                "clones": 20, "pool": 2},
     "sc-10x-5p": {"cells_per_sample": 30, "receptor_share": 0.5,
                   "clonotypes": 12, "reads_per_chain": [10, 35],
                   "pool": 2},

@@ -1,6 +1,6 @@
 """The traffic generator: seeded, sized alike for every seed, planted
-receptor reads from productive rearrangements within one locus, the 10x
-read layout."""
+receptor reads from productive rearrangements within one locus, the
+paired-end and the 10x read layouts."""
 
 import gzip
 import json
@@ -26,7 +26,7 @@ def _reads(path):
     return lines[0::4][:len(lines) // 4], lines[1::4][:len(lines) // 4]
 
 
-@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+@pytest.mark.parametrize("config", ["bulk-se", "bulk-pe", "sc-10x-5p"])
 def test_same_seed_same_bytes(tmp_path, config):
     cfg, mix = _config(config), TINY[config]
     a = generator.generate_pool(cfg, mix, 2 ** 31 + 77, str(tmp_path / "a"))
@@ -142,3 +142,41 @@ def test_tenx_layout(tmp_path):
             per = [(s["read_clone"] == k)[s["read_group"] == cell].sum()
                    for k in sorted(chains)]
             assert all(10 <= p <= 35 for p in per)
+
+
+def test_paired_layout(tmp_path):
+    """Fragment i's mates are record i of each file, on one template and
+    facing each other: the forward mate's start first, the fragment
+    between a read's length and the template's; some mates overlap."""
+    cfg, mix = _config("bulk-pe"), TINY["bulk-pe"]
+    n, length = mix["fragments_per_sample"], cfg["read_length"]
+    comp = str.maketrans("ACGT", "TGCA")
+    for s in generator.generate_pool(cfg, mix, 31, str(tmp_path)):
+        assert s["reads"] == [s["files"]["read1"], s["files"]["read2"]]
+        (n1, r1), (n2, r2) = (_reads(p) for p in s["reads"])
+        assert n1 == n2 and len(r1) == n and s["n_reads"] == 2 * n
+        assert {len(x) for x in r1 + r2} == {length}
+        assert set("".join(r1 + r2)) <= set("ACGT")
+        rc = s["read_clone"]
+        assert (rc[:n] == rc[n:]).all()
+        assert (rc >= 0).mean() == pytest.approx(mix["receptor_share"],
+                                                 abs=0.01)
+        overlap = 0
+        for i in np.nonzero(rc[:n] >= 0)[0][:300]:
+            t = s["clones"][rc[i]]["template"]
+            placed = []
+            for m, seq in ((0, r1[i]), (1, r2[i])):
+                st = s["read_start"][m * n + i]
+                want = t[st:st + length]
+                fwd = sum(a != b for a, b in zip(seq, want))
+                rev = sum(a != b for a, b in
+                          zip(seq.translate(comp)[::-1], want))
+                assert min(fwd, rev) <= 5
+                placed.append((fwd < rev, st))
+            (f1, s1), (f2, s2) = placed
+            assert f1 != f2
+            first, last = (s1, s2) if f1 else (s2, s1)
+            assert 0 <= first <= last
+            assert length <= last + length - first <= len(t)
+            overlap += last - first < length
+        assert 0 < overlap < 300

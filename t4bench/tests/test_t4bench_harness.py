@@ -13,7 +13,8 @@ from t4bench import run
 from t4bench_common import ROOT, bench_limits, tiny_cell
 
 # The limits of the tiny cells: the rich bulk cell's.
-LIMITS = {c: bench_limits() for c in ("bulk-se", "sc-10x-5p")}
+CONFIGS = ("bulk-se", "bulk-pe", "sc-10x-5p")
+LIMITS = {c: bench_limits() for c in CONFIGS}
 
 
 def test_exits_nonzero_without_a_card():
@@ -65,7 +66,7 @@ def _cpu_run(tmp_path, config, wrap=None, seed=2 ** 31 + 5):
                         compile_kernels=False, wrap=wrap)
 
 
-@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_sound_run_is_correct(tmp_path, monkeypatch, config):
     monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
     r = _cpu_run(tmp_path, config)
@@ -85,7 +86,8 @@ def _unchanged(fn):
 def _half(fn):
     """Half of the batch left out: the sample's first half of reads."""
     def step(coord, imgt, **kw):
-        for key in ("single_files", "barcode_files"):
+        for key in ("single_files", "barcode_files", "read1_files",
+                    "read2_files"):
             if kw.get(key):
                 src = kw[key][0]
                 dst = os.path.join(os.path.dirname(kw["output_prefix"]),
@@ -102,14 +104,14 @@ def _half(fn):
 
 @pytest.mark.parametrize("fault", [_unchanged, _half],
                          ids=["unchanged", "half"])
-@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_fault_is_not_correct(tmp_path, monkeypatch, config, fault):
     monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
     r = _cpu_run(tmp_path, config, wrap=fault)
     assert not r["correct"], r["checks"]
 
 
-@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_altered_cdr3_is_not_correct(tmp_path, monkeypatch, config):
     """An answer altered where it is produced: the annotator writes each
     CDR3 with its fourth base changed."""
@@ -132,3 +134,20 @@ def test_altered_cdr3_is_not_correct(tmp_path, monkeypatch, config):
     monkeypatch.setattr(Annotator, "realign_and_write_cdr3", altered)
     r = _cpu_run(tmp_path, config)
     assert not r["correct"], r["checks"]
+
+
+def _mate_two_dropped(fn):
+    """Every record of ``_toassemble_2.fq`` dropped once the program has
+    written it."""
+    def step(coord, imgt, **kw):
+        fn(coord, imgt, **kw)
+        open(kw["output_prefix"] + "_toassemble_2.fq", "w").close()
+    return step
+
+
+def test_dropped_mate_two_is_not_correct(tmp_path, monkeypatch):
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    r = _cpu_run(tmp_path, "bulk-pe", wrap=_mate_two_dropped)
+    assert not r["correct"], r["checks"]
+    missed = r["checks"]["extract_missed"]
+    assert missed["value"] > missed["limit"], r["checks"]

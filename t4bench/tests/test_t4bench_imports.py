@@ -56,7 +56,8 @@ def test_reference_loads_nothing_of_the_program():
     code = ("import sys; import t4bench.reference.control, "
             "t4bench.reference.judge, t4bench.data.standin, "
             "t4bench.traffic.generator, t4bench.layouts; "
-            "[t4bench.layouts.load(n) for n in ('bulk-se', '10x-5p')]; "
+            "[t4bench.layouts.load(n) for n in "
+            "('bulk-se', 'bulk-pe', '10x-5p')]; "
             "bad = {m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'trust4_tpu', 'trust4_tpu_torch', "
             "'torch'}; print(sorted(bad))")

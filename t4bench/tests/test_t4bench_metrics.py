@@ -6,6 +6,8 @@ import os
 
 import pytest
 
+import test_t4bench_read_wait as read_wait
+import test_t4bench_span_metrics as span_metrics
 from t4bench.run import Cell
 from t4bench_common import ROOT
 
@@ -58,6 +60,13 @@ WANT = {
 }
 
 
+# The metrics whose lines this record lacks, each with the recorded run
+# and the value of the module that tests its reader.
+ELSEWHERE = {name: (span_metrics._record, want)
+             for name, want in span_metrics.WANT.items()}
+ELSEWHERE[read_wait.NAME] = (read_wait._record, 0.06)
+
+
 def _names():
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         b = json.load(f)
@@ -67,7 +76,9 @@ def _names():
 @pytest.mark.parametrize("name", _names())
 def test_reader(name):
     cell = Cell("bulk-se.receptor-rich")
-    assert cell.reader(name)(_record()) == pytest.approx(WANT[name])
+    record, want = (ELSEWHERE[name] if name in ELSEWHERE
+                    else (_record, WANT[name]))
+    assert cell.reader(name)(record()) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("name", ["extract.s_per_sample",
@@ -80,7 +91,7 @@ def test_reader_finds_nothing_without_tracing(name):
 
 
 def test_every_metric_has_a_reader():
-    assert sorted(_names()) == sorted(WANT)
+    assert sorted(_names()) == sorted(set(WANT) | set(ELSEWHERE))
     for name in _names():
         assert os.path.exists(os.path.join(ROOT, "t4bench", "metrics",
                                            name + ".py"))

@@ -9,10 +9,11 @@ from t4bench.reference import control, judge
 from t4bench_common import bench_limits, tiny_cell
 
 # The limits of the tiny cells: the rich bulk cell's.
-LIMITS = {c: bench_limits() for c in ("bulk-se", "sc-10x-5p")}
+CONFIGS = ("bulk-se", "bulk-pe", "sc-10x-5p")
+LIMITS = {c: bench_limits() for c in CONFIGS}
 
 
-@pytest.mark.parametrize("config", ["bulk-se", "sc-10x-5p"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_control_at_both_precisions(tmp_path, config):
     cell = tiny_cell(str(tmp_path), config, LIMITS[config])
     exact = control.control(cell, 2 ** 31 + 9, 2, str(tmp_path / "two"))
@@ -36,7 +37,8 @@ def test_shipping_path_on_the_cpu_is_correct(tmp_path, monkeypatch):
     assert r["correct"], r["checks"]
 
 
-def test_swapped_gap_counts_are_not_correct(tmp_path, monkeypatch):
+@pytest.mark.parametrize("config", ["bulk-se", "bulk-pe"])
+def test_swapped_gap_counts_are_not_correct(tmp_path, monkeypatch, config):
     """The counts kernel's answer altered where it is produced: the
     shipping path on the CPU with match and mismatch swapped calls other
     V alleles, which ``v_call_wrong`` sees."""
@@ -47,7 +49,7 @@ def test_swapped_gap_counts_are_not_correct(tmp_path, monkeypatch):
     monkeypatch.setattr(dp_counts, "banded_affine_counts",
                         dp_counts.banded_affine_counts)
     faults.swap_counts()
-    cell = tiny_cell(str(tmp_path), "bulk-se", LIMITS["bulk-se"])
+    cell = tiny_cell(str(tmp_path), config, LIMITS[config])
     r = run.run_cell(cell, 2 ** 31 + 21, 0.5, False, device="cpu",
                      compile_kernels=False)
     assert not r["correct"], r["checks"]
@@ -78,3 +80,68 @@ def test_frozen_references_are_the_ports(tmp_path):
     for a, b in zip(ours, theirs):
         with open(a) as fa, open(b) as fb:
             assert fa.read() == fb.read()
+
+
+GAP = "N" * judge.GAP_N
+
+
+def _revcomp(seq):
+    return seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def _reference(tmp_path, config):
+    """One tiny sample of ``config`` and the reference's answer for it."""
+    from t4bench.data import standin
+    from t4bench.traffic import generator
+
+    cell = tiny_cell(str(tmp_path), config, LIMITS[config])
+    coord, _imgt = standin.write_references(str(tmp_path / "ref"))
+    sample = generator.generate_pool(cell.config, cell.mix, 2 ** 31 + 31,
+                                     str(tmp_path / "pool"), cell.layout)[0]
+    ref = judge.Reference(sample, judge.coordinate_genes(coord),
+                          judge.imgt_table(standin.IMGT_TABLE),
+                          cell.config["read_length"], cell.layout)
+    return ref, sample
+
+
+def test_gapped_contig_in_order_is_placed(tmp_path):
+    """A contig that mate scaffolding joined across a gap lies on its
+    template piece by piece, on either strand, the gap up to the longest
+    fragment."""
+    ref, sample = _reference(tmp_path, "bulk-pe")
+    top = sample["fragment_max"]
+    t = sample["clones"][0]["template"]
+    joined = t[:120] + GAP + t[200:320]
+    widest = t[:60] + GAP + t[60 + top:120 + top]
+    for contig in (joined, _revcomp(joined), widest, _revcomp(widest)):
+        assert ref._placed(contig)
+    assert ref._contigs([("c0", joined), ("c1", widest)]) == 0.0
+
+
+def test_gapped_contig_out_of_place_is_off(tmp_path):
+    """Pieces out of order, a gap wider than any fragment, or pieces of
+    two templates: each such contig is off."""
+    ref, sample = _reference(tmp_path, "bulk-pe")
+    top = sample["fragment_max"]
+    clones = sample["clones"]
+    t = clones[0]["template"]
+    # A piece of another clone that lies nowhere on the first template.
+    other = next(s[200:320] for s in (c["template"] for c in clones[1:])
+                 if all(w // 2 != 0 for w, _a in ref._spots(s[200:320])))
+    for contig in (t[200:320] + GAP + t[:120],
+                   t[:60] + GAP + t[61 + top:121 + top],
+                   t[:120] + GAP + other, other + GAP + t[200:320]):
+        assert not ref._placed(contig)
+        assert not ref._placed(_revcomp(contig))
+    assert ref._contigs([("c0", t[200:320] + GAP + t[:120]),
+                         ("c1", t[:300])]) == 0.5
+
+
+def test_single_reads_are_placed_whole(tmp_path):
+    """Without pairs no contig is scaffolded: a run of N is judged as
+    bases, so the joined contig that pairs would place is off."""
+    ref, sample = _reference(tmp_path, "bulk-se")
+    assert "fragment_max" not in sample
+    t = sample["clones"][0]["template"]
+    assert ref._placed(t[:240])
+    assert not ref._placed(t[:120] + GAP + t[200:320])

@@ -157,8 +157,13 @@ def template_reads(rng, clones, which: np.ndarray, read_len: int, err: float,
     seq[mut] = _BASES[rng.integers(0, 4, int(mut.sum()), dtype=np.uint8)]
     rc = (rng.random(len(which)) < 0.5) if strand else np.zeros(
         len(which), bool)
-    seq[rc] = _COMP[seq[rc][:, ::-1]]
+    seq[rc] = revcomp(seq[rc])
     return seq, start
+
+
+def revcomp(seqs: np.ndarray) -> np.ndarray:
+    """The reverse complement of each row of ``seqs`` (bases)."""
+    return _COMP[seqs[:, ::-1]]
 
 
 def write_fastq(path: str, seqs: np.ndarray) -> None:
