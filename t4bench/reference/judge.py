@@ -317,6 +317,11 @@ class Reference:
         order = np.argsort(codes, kind="stable")
         self._codes, self._where, self._offs = (
             codes[order], where[order], offs[order])
+        # A run judges each pool sample's outputs several times over, and
+        # the program writes the same contigs each time: each contig is
+        # placed once.  Both are pure in the contig and this sample.
+        self._place_memo: Dict[tuple, Optional[tuple]] = {}
+        self._placed_memo: Dict[str, bool] = {}
 
     def judge(self, prefix: str) -> Dict[str, float]:
         """The numbers for the program's outputs at ``prefix``."""
@@ -416,6 +421,11 @@ class Reference:
         """The contig, turned to template ``k``'s forward strand, and its
         offset there, at the placement with the fewest mismatches among
         those where they share a K-mer."""
+        if (contig, k) not in self._place_memo:
+            self._place_memo[contig, k] = self._find_place(contig, k)
+        return self._place_memo[contig, k]
+
+    def _find_place(self, contig: str, k: int) -> Optional[tuple]:
         rows = _rows_of([contig])
         if not rows:
             return None
@@ -459,6 +469,11 @@ class Reference:
         all on one strand of one template, each starting past the start of
         the one before and at most ``fragment_max`` bases past its end (a
         pair spans the gap)."""
+        if contig not in self._placed_memo:
+            self._placed_memo[contig] = self._lies_inside(contig)
+        return self._placed_memo[contig]
+
+    def _lies_inside(self, contig: str) -> bool:
         top = self.sample.get("fragment_max")
         if top is None:
             return next(self._spots(contig), None) is not None

@@ -30,7 +30,10 @@ BENCHMARK.json, as a configuration, a traffic mix and a cell's limits
 are files found by theirs.
 
 The last line of standard output is the run's JSON result; the numbers
-compared, each with its limit, end standard error.  Without a card, with
+compared, each with its limit, end standard error, after the walls of the
+run's phases (``phases (s): pool ... judge ... total ...``: steps 1 and
+2, 3, 4, 5 with the profiler's start, the trace's reading, 6) and of its
+samples.  Without a card, with
 too few cards, or with JAX or the JAX package loaded, the run exits
 non-zero and prints no result.
 """
@@ -61,6 +64,8 @@ MODE_ENV = ("TRUST4_TPU_DEVICE", "TRUST4_TPU_DEVICE_CHECK",
             "TRUST4_TPU_GAP_TEST", "TRUST4_TPU_NATIVE_DIR",
             "TRUST4_TPU_STAGE_TIMES", "T4_PROF")
 STDERR_TAIL = 6000
+# The phases of a run, in order: each starts where the one before ends.
+PHASES = ("pool", "build", "cold", "warm", "window", "trace", "judge")
 
 
 class HarnessError(RuntimeError):
@@ -179,13 +184,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     from t4bench.traffic import generator
 
     work = tempfile.mkdtemp(prefix="t4bench-")
+    ends = []  # the clock at the end of each of PHASES
     try:
         refs = standin.write_references(os.path.join(work, "ref"))
         pool = generator.generate_pool(cell.config, cell.mix, seed,
                                        os.path.join(work, "pool"),
                                        cell.layout)
+        ends.append(time.perf_counter())
         if compile_kernels:
             build(cell.root)
+        ends.append(time.perf_counter())
         if device == "cuda" and "torch" in sys.modules:
             raise HarnessError("torch was loaded before the cold sample")
 
@@ -223,9 +231,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         from trust4_tpu_torch.ops import gap_oracle
 
         boot_line = gap_oracle.boot_line()
+        ends.append(time.perf_counter())
         # 4. One warm sample.
         sample(1 % len(pool), "warm")
-        setup_s = time.perf_counter() - t_start
+        ends.append(time.perf_counter())
+        setup_s = ends[-1] - t_start
 
         # 5. The window.
         prof = _Profiler(device) if trace else None
@@ -249,11 +259,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                                n_reads=pool[k]["n_reads"]))
             if outs[-1]["t1"] - w0 >= seconds:
                 break
-        w1 = window[-1]["t1"] if window else time.perf_counter()
+        ends.append(time.perf_counter())
+        w1 = window[-1]["t1"] if window else ends[-1]
         dev = _device(cell.chips) if device == "cuda" else {
             "platform": "cpu", "kind": "cpu", "count": 0,
             "memory_peak_bytes": 0}
         traced = prof.stop(w0, w1, window) if prof else None
+        ends.append(time.perf_counter())
 
         # 6. The reference, once the window has closed.
         table = judge.imgt_table(standin.IMGT_TABLE)
@@ -273,6 +285,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             per_sample.append(refs_of[o["pool"]].judge(o["prefix"]))
             shutil.rmtree(os.path.dirname(o["prefix"]))
         numbers = judge.worst(per_sample)
+        ends.append(time.perf_counter())
         correct = (error is None and failed == 0
                    and judge.passes(numbers, cell.limits))
 
@@ -297,6 +310,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                             for k in judge.NUMBERS}
         result["_error"] = error
         result["_walls"] = [o["t1"] - o["t0"] for o in outs]
+        result["_phases"] = dict(
+            zip(PHASES, [b - a for a, b in zip([t_start] + ends, ends)]),
+            total=time.perf_counter() - t_start)
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -375,6 +391,9 @@ def main(argv=None) -> int:
     error = result.pop("_error")
     if error:
         print(error[-STDERR_TAIL:], file=sys.stderr)
+    print("phases (s): " + " ".join(
+        f"{k} {v:.3f}" for k, v in result.pop("_phases").items()),
+        file=sys.stderr)
     print("sample walls (s): " + " ".join(
         f"{w:.3f}" for w in result.pop("_walls")), file=sys.stderr)
     for k, v in result["checks"].items():

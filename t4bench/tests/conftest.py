@@ -4,6 +4,11 @@ from the repository's root)."""
 import os
 import sys
 
+import pytest
+
+# The checks of t4bench_common assert as a test does.
+pytest.register_assert_rewrite("t4bench_common")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 if ROOT not in sys.path:

@@ -3,6 +3,7 @@ the look for a card skipped and the program in a CPU mode, a sound run
 is correct and a run with the timed path broken underneath is not."""
 
 import gzip
+import json
 import os
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import sys
 import pytest
 
 from t4bench import run
+from t4bench.reference import judge
 from t4bench_common import ROOT, bench_limits, tiny_cell
 
 # The limits of the tiny cells: the rich bulk cell's.
@@ -73,7 +75,44 @@ def test_sound_run_is_correct(tmp_path, monkeypatch, config):
     assert r["correct"], r["checks"]
     assert r["failed"] == 0 and r["attempted"] >= 1
     assert set(r["metrics"]) == {"reads_per_s", "setup_s"}
-    assert list(r)[-3:] == ["checks", "_error", "_walls"]
+    assert list(r)[-4:] == ["checks", "_error", "_walls", "_phases"]
+
+
+def test_phases_of_a_run(tmp_path, monkeypatch, capfd):
+    """``run_cell`` returns the walls of the run's phases, which add up to
+    its total; ``main`` prints them, then the sample walls, and ends
+    standard error with the check lines."""
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    cell = tiny_cell(str(tmp_path), "bulk-se", LIMITS["bulk-se"])
+    real = run.run_cell
+    phases = {}
+
+    def on_the_cpu(c, seed, seconds, trace):
+        r = real(c, seed, seconds, trace, device="cpu",
+                 compile_kernels=False)
+        phases.update(r["_phases"])
+        return r
+
+    # The test's process keeps its own fault handler.
+    monkeypatch.setattr(run.faulthandler, "enable", lambda: None)
+    monkeypatch.setattr(run, "Cell", lambda name: cell)
+    monkeypatch.setattr(run, "run_cell", on_the_cpu)
+    rc = run.main(["--workload", cell.name, "--seed", str(2 ** 33 + 7),
+                   "--seconds", "0.5", "--trace", "0"])
+    out, err = capfd.readouterr()
+    assert rc == 0, err[-3000:]
+    assert list(phases) == list(run.PHASES) + ["total"]
+    assert min(phases.values()) >= 0
+    assert abs(sum(phases[k] for k in run.PHASES) - phases["total"]) < 1
+    lines = err.rstrip("\n").split("\n")
+    n = len(judge.NUMBERS)
+    assert [x.split()[1] for x in lines[-n:]] == list(judge.NUMBERS)
+    assert all(x.startswith("check ") for x in lines[-n:])
+    assert lines[-n - 1].startswith("sample walls (s): ")
+    assert lines[-n - 2].split()[2::2] == list(run.PHASES) + ["total"]
+    assert lines[-n - 2].startswith("phases (s): ")
+    result = json.loads(out.rstrip("\n").split("\n")[-1])
+    assert list(result)[-1] == "checks" and result["correct"]
 
 
 def _unchanged(fn):

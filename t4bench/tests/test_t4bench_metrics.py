@@ -1,15 +1,11 @@
 """Each metric reader on a recorded run: the program's ``[stage-time]``
 and ``[boot]`` text, gap_oracle.STATS and a device trace."""
 
-import json
-import os
-
 import pytest
 
-import test_t4bench_read_wait as read_wait
-import test_t4bench_span_metrics as span_metrics
 from t4bench.run import Cell
-from t4bench_common import ROOT
+from t4bench_common import (ROOT, check_metrics, metric_expectations,
+                            metric_names)
 
 STDERR = """\
 Start to extract candidate reads.
@@ -60,24 +56,22 @@ WANT = {
 }
 
 
-# The metrics whose lines this record lacks, each with the recorded run
-# and the value of the module that tests its reader.
-ELSEWHERE = {name: (span_metrics._record, want)
-             for name, want in span_metrics.WANT.items()}
-ELSEWHERE[read_wait.NAME] = (read_wait._record, 0.06)
+# What each metric's reader reads on the run recorded here.  The metrics
+# whose lines this record lacks are recorded by the test modules of their
+# readers, each in its own METRICS (t4bench_common.metric_expectations).
+METRICS = {name: (_record, want) for name, want in WANT.items()}
 
 
-def _names():
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        b = json.load(f)
-    return [m["name"] for m in b["end_to_end"] + b["per_layer"]]
+@pytest.fixture(scope="module")
+def expected():
+    return metric_expectations(ROOT)
 
 
-@pytest.mark.parametrize("name", _names())
-def test_reader(name):
+@pytest.mark.parametrize("name", metric_names())
+def test_reader(name, expected):
+    assert name in expected, f"no test module records {name}"
     cell = Cell("bulk-se.receptor-rich")
-    record, want = (ELSEWHERE[name] if name in ELSEWHERE
-                    else (_record, WANT[name]))
+    record, want = expected[name]
     assert cell.reader(name)(record()) == pytest.approx(want)
 
 
@@ -91,7 +85,4 @@ def test_reader_finds_nothing_without_tracing(name):
 
 
 def test_every_metric_has_a_reader():
-    assert sorted(_names()) == sorted(set(WANT) | set(ELSEWHERE))
-    for name in _names():
-        assert os.path.exists(os.path.join(ROOT, "t4bench", "metrics",
-                                           name + ".py"))
+    check_metrics(ROOT)

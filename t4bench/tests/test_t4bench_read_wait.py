@@ -40,12 +40,16 @@ def _record(trace=True, program="new"):
                          "stats": {}}]}
 
 
+METRICS = {NAME: (_record, 0.06)}
+
+
 @pytest.mark.parametrize("cell", ["bulk-se.receptor-rich",
                                   "bulk-se.receptor-sparse"])
 def test_reads_the_counter_in_both_cells(cell):
     c = Cell(cell)
     assert NAME in {m["name"] for m in c.per_layer}
-    assert c.reader(NAME)(_record()) == pytest.approx(0.06)
+    record, want = METRICS[NAME]
+    assert c.reader(NAME)(record()) == pytest.approx(want)
 
 
 def test_none_with_tracing_off():

@@ -2,6 +2,9 @@
 the reference put in the program's place passes at the configuration's
 precision (2 bits a base) and fails one bit below."""
 
+import collections
+import os
+
 import pytest
 
 from t4bench import run
@@ -145,3 +148,43 @@ def test_single_reads_are_placed_whole(tmp_path):
     t = sample["clones"][0]["template"]
     assert ref._placed(t[:240])
     assert not ref._placed(t[:120] + GAP + t[200:320])
+
+
+@pytest.mark.parametrize("config", ["bulk-se", "bulk-pe"])
+def test_judge_memo_same_numbers(tmp_path, monkeypatch, config):
+    """A Reference places each contig once: judging the same program
+    outputs a second time on it, or once on a fresh Reference, gives the
+    same numbers, and the second time places nothing anew."""
+    from t4bench.data import standin
+    from t4bench.traffic import generator
+    from trust4_tpu_torch.pipeline.run import run_trust4
+
+    monkeypatch.setenv("TRUST4_TPU_DEVICE", "0")
+    cell = tiny_cell(str(tmp_path), config, LIMITS[config])
+    refs = standin.write_references(str(tmp_path / "ref"))
+    sample = generator.generate_pool(cell.config, cell.mix, 2 ** 31 + 43,
+                                     str(tmp_path / "pool"), cell.layout)[0]
+    prefix = str(tmp_path / "out" / "S")
+    os.makedirs(os.path.dirname(prefix))
+    run._run_sample(run_trust4, refs, cell, sample, prefix, "cpu")
+
+    def reference():
+        return judge.Reference(sample, judge.coordinate_genes(refs[0]),
+                               judge.imgt_table(standin.IMGT_TABLE),
+                               cell.config["read_length"], cell.layout)
+
+    ref = reference()
+    calls = collections.Counter()
+    for name in ("_find_place", "_lies_inside"):
+        def counted(*args, _real=getattr(ref, name), _name=name):
+            calls[(_name,) + args] += 1
+            return _real(*args)
+        monkeypatch.setattr(ref, name, counted)
+    first = ref.judge(prefix)
+    placed = dict(calls)
+    assert ref.judge(prefix) == first
+    assert reference().judge(prefix) == first
+    assert dict(calls) == placed and set(placed.values()) == {1}
+    contigs = {seq for _h, seq in judge.read_fasta(prefix + "_annot.fa")}
+    assert {c[1] for c in placed if c[0] == "_lies_inside"} == contigs
+    assert any(c[0] == "_find_place" for c in placed), first

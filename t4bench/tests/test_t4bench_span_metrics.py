@@ -72,6 +72,7 @@ WANT = {
     "dp_counts.band_cells_per_sample": 1300.0,
     "boot.device_init_s": 0.6,
 }
+METRICS = {name: (_record, want) for name, want in WANT.items()}
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
