@@ -33,9 +33,10 @@ It drives the port only (never jax, never trust4_tpu):
 5. scale phase: a 500k-read bulk corpus (the port's
    tools/make_bench_corpus.py) run on the card with the default settings
    (the main path: launches counted from 0 around it; the gap oracle's
-   per-tier launches and CUDA-event kernel ms) and again with
-   TRUST4_TPU_DEVICE=0; the artifacts must be
-   byte-identical and the kernel must have launched; a third card run
+   per-tier launches and CUDA-event kernel ms; #8's launches, one a
+   stream batch) and again with TRUST4_TPU_DEVICE=0 (no launch of #8);
+   the artifacts must be byte-identical and the kernel must have
+   launched; a third card run
    under torch.profiler gives the device's busy and idle share;
 6. realign phase: the scale run's own candidate reads and contigs, with
    the stand-in coordinate FASTA as germline, through ``realign_round``
@@ -133,7 +134,16 @@ It drives the port only (never jax, never trust4_tpu):
    the gold reads and fuzz corpora 9000 (pe) and 9004 (long): the
    TRUST4_TPU_DEBUG=1 assembly trace of the shipping mode on the card
    byte-identical to TRUST4_TPU_DEVICE=0's; its lines, the wall and the
-   card are printed.
+   card are printed;
+17. extract phase (run before the scale phase): extraction's candidate
+   filter kernel #8 (``ops/extract_filter.CardFilter``) on one bulk
+   stream batch (16,384 100-base reads, ``testing.mix_reads``) of each
+   benchmark mix, on the coordinate stand-in's index at k = 9 and a hit
+   length of 23 (launches counted from 0 around it): every decision
+   equal to the host filter's (8 threads) and to the plain version's
+   (``engine/overlap.py`` ``has_hit_in_set``), none undecided; the
+   CUDA-event median and the back-to-back device time of the launch
+   beside the bound (bytes) and both host versions' ms.
 
 Small launches spend much of their CUDA-event time in the host's gap
 before the kernel starts, so the dirs, lab and microbench phases also
@@ -212,6 +222,10 @@ N_SWEEP = 5
 N_PLAIN = 3
 N_SAMPLE = 2000
 SCALE_READS = 500_000
+# The bulk stream's batch (native/extract_filter.cpp ReadAhead) and the
+# receptor shares of the benchmark's bulk mixes (t4bench/traffic).
+EXTRACT_BATCH = 16384
+EXTRACT_MIXES = (("rich", 0.05), ("sparse", 0.0025))
 PREFILTER_READS = 20_000
 BENCH_READS = 100_000
 
@@ -266,13 +280,21 @@ def phase_build() -> dict:
 
 
 _KERNEL_NAME = re.compile(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E")
+# A kernel that is no template: its name's length, the name, the end of
+# its (namespace-qualified) name.
+_PLAIN_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)E")
 
 
-def _kernel_key(mangled: str) -> str:
-    """'dp_counts_kernel<48,8>' from a mangled kernel name."""
+def _kernel_key(mangled: str):
+    """'dp_counts_kernel<48,8>' from a mangled kernel name, the name alone
+    for a kernel that is no template ('extract_filter_kernel'), or None
+    for a function that is neither."""
     m = _KERNEL_NAME.search(mangled)
-    args = re.findall(r"L[a-z](\d+)E", m.group(2))
-    return f"{m.group(1)}<{','.join(args)}>"
+    if m:
+        args = re.findall(r"L[a-z](\d+)E", m.group(2))
+        return f"{m.group(1)}<{','.join(args)}>"
+    m = _PLAIN_KERNEL_NAME.search(mangled)
+    return m.group(1) if m else None
 
 
 def _ptxas_usage(log: str) -> dict:
@@ -283,8 +305,7 @@ def _ptxas_usage(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(_Z\w+)", line)
         if m:
-            cur = (_kernel_key(m.group(1)) if _KERNEL_NAME.search(m.group(1))
-                   else None)
+            cur = _kernel_key(m.group(1))
             continue
         if cur is None:
             continue
@@ -326,8 +347,10 @@ def _sass_counts(lib: str) -> dict:
     out = {}
     for fn in sass.split("Function : ")[1:]:
         key = _kernel_key(fn.split()[0])
+        if key is None:
+            raise AssertionError(f"{lib}: no kernel name in {fn.split()[0]}")
         name = key.split("<")[0]
-        args = [int(a) for a in key[len(name) + 1:-1].split(",")]
+        args = [int(a) for a in re.findall(r"\d+", key[len(name):])]
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         rec = {"library": library, "total": len(ins),
@@ -1727,12 +1750,82 @@ def phase_gold(work: str, coord: str, imgt: str) -> int:
     return launches
 
 
+def phase_extract(coord: str) -> dict:
+    """Kernel #8 (ops/extract_filter.py) on one bulk stream batch of each
+    mix (EXTRACT_MIXES) on the stand-in's index at k = 9 and a hit length
+    of 23, launches counted from 0 around it: its decisions equal to the
+    host filter's (NativeCandidateFilter.filter_batch on 8 threads, what
+    it replaces on the main path) and to the plain version's
+    (engine/overlap.py ``has_hit_in_set`` behind the low-complexity
+    guard, one thread), none undecided; the CUDA-event median of N_TIMED
+    launches, its inputs on the card, the back-to-back device time, the
+    bound (bytes: the reads, their offsets, the decisions and the tables
+    once, over HBM) and both host versions' ms.  Returns the mixes'
+    records, each with the launches."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.engine.seqset import SeqSet
+    from trust4_tpu_torch.ops import extract_filter
+    from trust4_tpu_torch.pipeline import extract_native
+    from trust4_tpu_torch.pipeline.extract import is_low_complexity
+
+    ss = SeqSet(9)
+    ss.set_native_only_index()
+    ss.input_ref_fa(coord)
+    native = extract_native.NativeCandidateFilter(
+        [sw.consensus for sw in ss.seqs], 9, ss.radius, 23)
+    plain = SeqSet(9)
+    plain.input_ref_fa(coord)
+    plain.hit_len_required = 23
+    card = extract_filter.CardFilter(native, "cuda")
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in (card.off, card.posts))
+    out = {}
+    for name, share in EXTRACT_MIXES:
+        reads = testing.mix_reads(coord, EXTRACT_BATCH, share, 23)
+        launches = extract_filter.launches()
+        got = card.decide(reads)
+        launches = extract_filter.launches() - launches
+        t0 = time.perf_counter()
+        host = native.filter_batch(reads, threads=8)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = np.array([0 if is_low_complexity(r) else
+                         plain.has_hit_in_set(r) for r in reads], np.int8)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        if not np.array_equal(host, want):
+            raise AssertionError(f"extract {name}: the host filter differs "
+                                 "from the plain version")
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"extract {name}: #8 differs from the host filter on "
+                f"{int((got != want).sum())} reads "
+                f"({int((got == extract_native.UNDECIDED).sum())} "
+                f"undecided)")
+        if launches != 1:
+            raise AssertionError(f"extract {name}: {launches} launches")
+        batch = card.put(reads)
+        n_bytes = sum(t.numel() * t.element_size() for t in batch)
+        rec = {"mix": name, "share": share, "n": len(reads),
+               "candidates": int((want != 0).sum()), "launches": launches,
+               "mismatches": 0,
+               "ms": _median_ms(lambda: card.launch(*batch), N_TIMED),
+               "device_ms": _device_ms([lambda: card.launch(*batch)],
+                                       N_TIMED)[0],
+               "bound_ms": 1e3 * (n_bytes + table_bytes) / HBM_BYTES_PER_S,
+               "bound_by": "bytes", "host_ms": host_ms,
+               "plain_ms": plain_ms}
+        print(f"extract {json.dumps(rec)}", flush=True)
+        out[name] = rec
+    return out
+
+
 def phase_scale(work: str, coord: str, imgt: str, n_reads: int) -> dict:
     """The main path at scale on the card, then the native CPU DP; the
     artifacts must agree byte for byte.  Returns the card run's record
-    with the launches counted from 0 around it."""
+    with the launches of #1 (``launches``) and of #8
+    (``extract_launches``) counted from 0 around it."""
     from trust4_tpu_torch.tools.make_bench_corpus import make_corpus
-    from trust4_tpu_torch.ops import dp_counts
+    from trust4_tpu_torch.ops import dp_counts, extract_filter
 
     fq = os.path.join(work, "bulk.fq")
     t0 = time.perf_counter()
@@ -1747,17 +1840,29 @@ def phase_scale(work: str, coord: str, imgt: str, n_reads: int) -> dict:
     cpu = os.path.join(work, "cpu", "bulk")
 
     dp_counts.LAUNCHES = 0
+    xf0 = extract_filter.launches()
     res = _run(card, device="cuda", **kw)
     res["launches"] = dp_counts.LAUNCHES
+    res["extract_launches"] = extract_filter.launches() - xf0
     os.environ["TRUST4_TPU_DEVICE"] = "0"
+    xf0 = extract_filter.launches()
     try:
         res_cpu = _run(cpu, device="cuda", **kw)
     finally:
         del os.environ["TRUST4_TPU_DEVICE"]
+    res_cpu["extract_launches"] = extract_filter.launches() - xf0
     print(f"scale card: {json.dumps(res)}", flush=True)
     print(f"scale TRUST4_TPU_DEVICE=0: {json.dumps(res_cpu)}", flush=True)
     if res["launches"] == 0:
         raise AssertionError("scale phase: the kernel never launched")
+    # The prewarm was joined before: the run decides its extraction on
+    # the card, one launch of #8 a stream batch.
+    if res["extract_launches"] != -(-n_reads // EXTRACT_BATCH):
+        raise AssertionError(f"scale phase: #8 launched "
+                             f"{res['extract_launches']} times for "
+                             f"{n_reads} reads")
+    if res_cpu["extract_launches"]:
+        raise AssertionError("TRUST4_TPU_DEVICE=0 launched #8")
     if res_cpu["oracle"]["gap_fills"] != 0:
         raise AssertionError("TRUST4_TPU_DEVICE=0 ran the oracle")
     for suf in ("_toassemble.fq",) + ARTIFACTS + ("_report.tsv",
@@ -1854,12 +1959,13 @@ def _same_dirs(a: str, b: str, what: str) -> list:
 
 
 def _card_and_cpu(work: str, tag: str, fn) -> dict:
-    """fn(out_dir) on the card, launches counted from 0 around it, then
-    with TRUST4_TPU_DEVICE=0 (the native CPU DP); every file the two
-    write must be byte-identical, and the card run must launch #1 (the
-    process's prewarm was joined before: a prewarm launching inside
-    either run fails)."""
-    from trust4_tpu_torch.ops import dp_counts, gap_oracle
+    """fn(out_dir) on the card, launches (of #1, and of #8 where the part
+    streams bulk reads) counted from 0 around it, then with
+    TRUST4_TPU_DEVICE=0 (the native CPU DP, the filter on the threads);
+    every file the two write must be byte-identical, and the card run
+    must launch #1 (the process's prewarm was joined before: a prewarm
+    launching inside either run fails)."""
+    from trust4_tpu_torch.ops import dp_counts, extract_filter, gap_oracle
 
     rec = {}
     for mode in ("card", "cpu"):
@@ -1870,6 +1976,7 @@ def _card_and_cpu(work: str, tag: str, fn) -> dict:
         gap_oracle.reset_stats()
         tee = _Tee(sys.stderr)
         dp_counts.LAUNCHES = 0
+        xf0 = extract_filter.launches()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stderr(tee):
@@ -1884,12 +1991,14 @@ def _card_and_cpu(work: str, tag: str, fn) -> dict:
         rec[mode] = {"wall_s": time.perf_counter() - t0,
                      "stages_s": _stage_sums(tee.buf.getvalue()),
                      "launches": dp_counts.LAUNCHES,
+                     "extract_launches": extract_filter.launches() - xf0,
                      "gap_fills": orc["gap_fills"],
                      "tier_unique": list(orc["tier_unique"]),
                      "tier_launches": list(orc["tier_launches"])}
     if rec["card"]["launches"] == 0:
         raise AssertionError(f"modes phase: {tag}: #1 never launched")
-    if rec["cpu"]["launches"] or rec["cpu"]["gap_fills"]:
+    if (rec["cpu"]["launches"] or rec["cpu"]["gap_fills"]
+            or rec["cpu"]["extract_launches"]):
         raise AssertionError(f"modes phase: {tag}: TRUST4_TPU_DEVICE=0 "
                              "ran the oracle")
     names = _same_dirs(os.path.join(work, "modes", tag, "card"),
@@ -2501,6 +2610,7 @@ def main() -> int:
         print(f"prewarm: joined in the main process before its first "
               f"counted run, {prewarm['main']} launches", flush=True)
         _timed("gold", phase_gold, work, coord, imgt)
+        extract = _timed("extract", phase_extract, coord)
         scale = _timed("scale", phase_scale, work, coord, imgt, SCALE_READS)
         realign_launches, realign_card = _timed(
             "realign", phase_realign, os.path.join(work, "card", "bulk"),
@@ -2663,6 +2773,26 @@ def main() -> int:
                                      "ns_per_op", "device_ms",
                                      "device_ns_per_op", "sass", "bound_ms")}
                   for c in mb_cases],
+    })
+    xf = extract["sparse"]
+    kernels.append({
+        "name": "extract_filter",
+        "route": "cuda",
+        "source": "trust4_tpu_torch/csrc/extract_filter.cu",
+        "replaces": None,
+        "launches": scale["extract_launches"],
+        "max_abs_err": max(r["mismatches"] for r in extract.values()),
+        "ms": xf["ms"],
+        "plain_ms": xf["plain_ms"],
+        "bound_ms": xf["bound_ms"],
+        "bound_by": xf["bound_by"],
+        "library_ms": None,
+        "device_ms": xf["device_ms"],
+        "host_ms": xf["host_ms"],
+        "registers": sass["extract_filter_kernel"].get("registers"),
+        "spill_stores": sass["extract_filter_kernel"].get("spill_stores"),
+        "phase_launches": sum(r["launches"] for r in extract.values()),
+        "mixes": list(extract.values()),
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

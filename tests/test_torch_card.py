@@ -518,3 +518,160 @@ def test_native_dir_on_card(card, tmp_path):
     for lib in LIBS:
         assert [os.path.dirname(os.path.realpath(p)) for p in maps[lib]] == [
             os.path.realpath(d)], (lib, maps)
+
+
+@pytest.fixture(scope="module")
+def extract_index(tmp_path_factory):
+    """The stand-in coordinate FASTA, a host filter on its index at a
+    hit length of 23, the index's sequences and its radius."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.engine.seqset import SeqSet
+    from trust4_tpu_torch.pipeline import extract_native
+
+    d = str(tmp_path_factory.mktemp("extract_ref"))
+    coord = testing.write_standin_references(d, coordinates=True)[0]
+    ss = SeqSet(9)
+    ss.set_native_only_index()
+    ss.input_ref_fa(coord)
+    seqs = [sw.consensus for sw in ss.seqs]
+    native = extract_native.NativeCandidateFilter(seqs, 9, ss.radius, 23)
+    return coord, native, seqs, ss.radius
+
+
+@pytest.mark.parametrize("share", [0.05, 0.0025], ids=["rich", "sparse"])
+def test_extract_filter_kernel_matches_host(card, extract_index, share):
+    """The kernel's decision of 200,000 reads of each mix, in one launch,
+    equals the host filter's (low-complexity guard, HasHitInSet strand),
+    none left undecided."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.ops import extract_filter
+
+    coord, native, *_ = extract_index
+    reads = testing.mix_reads(coord, 200_000, share, 23)
+    want = native.filter_batch(reads, threads=8)
+    launches = extract_filter.launches()
+    got = extract_filter.CardFilter(native, card).decide(reads)
+    assert extract_filter.launches() == launches + 1
+    np.testing.assert_array_equal(got, want)
+    assert (want != 0).sum() > 0
+
+
+@pytest.mark.parametrize("hit_len", [23, 27, 30, 50])
+def test_extract_filter_kernel_on_every_quirk(card, extract_index, hit_len):
+    """The kernel's decision of the reads that hold each of the host
+    filter's quirks (testing.filter_parity_reads: lengths 8 to 250, N and
+    bytes other than ACGTN, low-complexity reads, runs of one base,
+    reference and template cuts on both strands), at each hit length, in
+    one launch: every decided read as the host filter decides it, and
+    undecided reads (the caps) only among a few of 250 bases."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.ops import extract_filter
+    from trust4_tpu_torch.pipeline import extract_native
+
+    coord, _, seqs, radius = extract_index
+    native = extract_native.NativeCandidateFilter(seqs, 9, radius, hit_len)
+    templates = [t for t, *_ in testing.clone_templates(coord, 40, hit_len)]
+    rng = np.random.default_rng(hit_len)
+    reads = [r for n in (8, 9, 50, 100, 150, 250)
+             for r in testing.filter_parity_reads(seqs, templates, n, rng)]
+    want = native.filter_batch(reads, threads=8)
+    assert (want == -1).sum() > 0 and (want == 1).sum() > 0
+    got = extract_filter.CardFilter(native, card).decide(reads)
+    undecided = got == extract_native.UNDECIDED
+    np.testing.assert_array_equal(got[~undecided], want[~undecided])
+    assert undecided.mean() < 0.01
+    assert all(len(reads[i]) == 250 for i in np.nonzero(undecided)[0])
+
+
+def test_extract_filter_kernel_on_repeats(card, extract_index):
+    """An index with k-mers of over 10,000 postings
+    (testing.filter_repeats_case): the kernel decides the reads that reach
+    them, through the repeats checks and the windows alike in a row, as
+    the host filter does, none left undecided."""
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.ops import extract_filter
+    from trust4_tpu_torch.pipeline import extract_native
+
+    _, _, seqs, radius = extract_index
+    extra, reads = testing.filter_repeats_case()
+    native = extract_native.NativeCandidateFilter(seqs + extra, 9, radius,
+                                                  23)
+    want = native.filter_batch(reads, threads=8)
+    assert (want != 0).sum() > len(reads) // 4 and (want == 0).sum() > 0
+    got = extract_filter.CardFilter(native, card).decide(reads)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_extract_stream_card_matches_threads(card, extract_index, tmp_path,
+                                             paired):
+    """The bulk stream through the card's decider writes the threads'
+    candidate files byte for byte, every test decided on the card."""
+    import gzip
+
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.ops import extract_filter
+
+    coord, native, *_ = extract_index
+    n = 3 * 16384 + 11
+    paths = []
+    for mate in range(1 + paired):
+        p = tmp_path / f"in_{mate}.fq.gz"
+        reads = testing.mix_reads(coord, n, 0.05, 31 + mate)
+        with gzip.open(p, "wt", compresslevel=1) as f:
+            f.writelines(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                         for i, r in enumerate(reads))
+        paths.append([str(p)])
+    outs = {}
+    for mode in ("threads", "card"):
+        o = [str(tmp_path / f"{mode}_{m}.fq") for m in range(1 + paired)]
+        cf = extract_filter.CardFilter(native, card) if mode == "card" \
+            else None
+        launches = extract_filter.launches()
+        k = native.extract_stream(paths[0], paths[1] if paired else None,
+                                  o[0], o[1] if paired else None, 8,
+                                  decider=cf)
+        assert extract_filter.launches() - launches == (4 if cf else 0)
+        outs[mode] = (k, [open(x, "rb").read() for x in o], native.decided)
+    assert outs["card"][:2] == outs["threads"][:2]
+    card_n, host_n = outs["card"][2]
+    assert host_n == 0 and card_n == sum(outs["threads"][2])
+
+
+def test_warm_run_takes_the_card_filter(card, tmp_path, monkeypatch):
+    """Once the boot has ended, run_trust4 decides extraction on the card
+    (the kernel's launches move, STATS extract_reads all on the card while
+    spans are on), and every file equals TRUST4_TPU_DEVICE=0's."""
+    import gzip
+    import os
+
+    from trust4_tpu_torch import testing
+    from trust4_tpu_torch.ops import extract_filter
+    from trust4_tpu_torch.pipeline.run import run_trust4
+
+    monkeypatch.delenv("TRUST4_TPU_DEVICE", raising=False)
+    monkeypatch.setenv("TRUST4_TPU_STAGE_TIMES", "1")
+    coord, imgt = testing.write_standin_references(str(tmp_path / "ref"),
+                                                   coordinates=True)
+    reads = str(tmp_path / "reads.fq.gz")
+    with gzip.open(reads, "wt", compresslevel=1) as f:
+        f.writelines(f"@r{i}\n{r}\n+\n{'I' * 100}\n" for i, r in
+                     enumerate(testing.mix_reads(coord, 40_000, 0.05, 7)))
+    gap_oracle.wait_ready("cuda")
+    out = tmp_path / "out"
+    out.mkdir()
+    seen = {}
+
+    def run(d):
+        gap_oracle.reset_stats()
+        launches = extract_filter.launches()
+        run_trust4(coord, imgt, single_files=[reads],
+                   output_prefix=os.path.join(d, "bulk"), device="cuda")
+        seen[d] = (extract_filter.launches() - launches,
+                   list(gap_oracle.STATS["extract_reads"]))
+
+    dirs = _card_vs_device0(out, monkeypatch, run)
+    launches, (on_card, on_host) = seen[dirs["card"]]
+    assert launches >= 3
+    assert on_card == 40_000 and on_host == 0
+    assert seen[dirs["cpu"]] == (0, [0, 40_000])

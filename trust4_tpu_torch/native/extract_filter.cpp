@@ -725,6 +725,33 @@ void t4x_filter_batch(void *h, const char **reads, const int *lens, int n,
 // Build the index's lookup table now rather than at the first query.
 void t4x_finalize(void *h) { finalize_index(*(Filter *)h); }
 
+// The index's direct-addressed tables, for a copy to the card
+// (csrc/extract_filter.cuh Tables): 4^k + 1 int32 starts and the int32
+// (sequence, offset) pairs they slice, and meta = {k, radius, hit length,
+// sequences}.  Returns 0, or -1 when the index has no such tables (k > 12)
+// or a k-mer's postings are not grouped by ascending sequence, which the
+// card's kernel relies on (t4x_add_seq appends them so).
+int t4x_csr_view(void *h, const int32_t **off, int64_t *n_off,
+                 const int32_t **posts, int64_t *n_posts, int32_t *meta) {
+  Filter *F = (Filter *)h;
+  finalize_index(*F);
+  if (F->csr_off.empty()) return -1;
+  for (size_t c = 0; c + 1 < F->csr_off.size(); c++)
+    for (int32_t t = F->csr_off[c] + 1; t < F->csr_off[c + 1]; t++)
+      if (F->csr_posts[t].first < F->csr_posts[t - 1].first) return -1;
+  static_assert(sizeof(std::pair<int, int>) == 2 * sizeof(int32_t),
+                "postings are int32 pairs");
+  *off = F->csr_off.data();
+  *n_off = (int64_t)F->csr_off.size();
+  *posts = reinterpret_cast<const int32_t *>(F->csr_posts.data());
+  *n_posts = (int64_t)F->csr_posts.size();
+  meta[0] = F->kmer_len;
+  meta[1] = F->radius;
+  meta[2] = F->hit_len_required;
+  meta[3] = F->n_seqs;
+  return 0;
+}
+
 // Raw HasHitInSet without the low-complexity guard (for parity tests).
 int t4x_has_hit(void *h, const char *read, int len) {
   finalize_index(*(Filter *)h);
@@ -1061,19 +1088,130 @@ struct ReadAhead {
 
 extern "C" {
 
+// A batch decider for the bulk stream: what decides a batch's reads in
+// place of the threads (the card, csrc/extract_filter.cu
+// t4_extract_decide).  The stream packs up to reads_cap reads, their
+// bases back to back into bases (bases_cap bytes) and their n + 1 starts
+// into offs, calls decide(ctx, n, bases used), and reads out[i]: 0 (not
+// a candidate), -1 or 1 (the HasHitInSet strand) or T4X_UNDECIDED (a cap
+// of the decider's; the stream decides that read itself).  decide returns
+// 0, or nonzero to end the stream with -2.
+struct t4x_decider {
+  int (*decide)(void *ctx, int n, int64_t n_bases);
+  void *ctx;
+  uint8_t *bases;
+  int64_t bases_cap;
+  int32_t *offs;
+  int8_t *out;
+  int32_t reads_cap;
+};
+
+}  // extern "C"
+
+namespace {
+
+const int8_t T4X_UNDECIDED = 2;
+
+// The candidate test of a batch's n reads (and their mates) through a
+// decider: every read goes to it in chunks that fit its staging, a read
+// it leaves undecided (or that alone exceeds its staging) is decided
+// here on `threads` workers, and good[i] takes today's mate rule: the
+// mate counts only when the first read fails.  decided[0] and [1] count
+// the tests the rule makes (every first read, and the mates it reaches)
+// that the decider and this side decided.  Returns 0, or the decider's
+// nonzero return.
+int decide_batch(const Filter &F, const t4x_decider &D,
+                 const std::vector<Rec> &b1, const std::vector<Rec> *b2,
+                 int n, int threads, std::vector<int8_t> &dec,
+                 std::vector<int8_t> &good, int64_t *decided) {
+  const int total = b2 ? 2 * n : n;
+  auto seq_of = [&](int i) -> const std::string & {
+    return i < n ? b1[i].seq : (*b2)[i - n].seq;
+  };
+  dec.resize(total);
+  for (int i = 0; i < total;) {
+    int m = 0;
+    int64_t used = 0;
+    D.offs[0] = 0;
+    while (i + m < total && m < D.reads_cap) {
+      const std::string &s = seq_of(i + m);
+      if (used + (int64_t)s.size() > D.bases_cap) break;
+      memcpy(D.bases + used, s.data(), s.size());
+      used += (int64_t)s.size();
+      D.offs[++m] = (int32_t)used;
+    }
+    if (m == 0) {  // one read longer than the staging
+      dec[i++] = T4X_UNDECIDED;
+      continue;
+    }
+    int rc = D.decide(D.ctx, m, used);
+    if (rc != 0) return rc;
+    memcpy(dec.data() + i, D.out, (size_t)m);
+    i += m;
+  }
+  // Undecided first reads, then the undecided mates the rule reaches.
+  std::vector<int> todo;
+  int64_t tested = n, on_this_side = 0;
+  auto on_host = [&]() {
+    auto work = [&](int lo, int hi) {
+      std::vector<Hit> buf;
+      for (int t = lo; t < hi; t++) {
+        const std::string &s = seq_of(todo[t]);
+        int8_t g = 0;
+        if (!is_low_complexity(s.data(), (int)s.size()))
+          g = (int8_t)has_hit_in_set(F, s.data(), (int)s.size(), buf);
+        dec[todo[t]] = g;
+      }
+    };
+    int m = (int)todo.size();
+    if (threads <= 1 || m < 64)
+      work(0, m);
+    else
+      steal_for(m, threads, 16, work);
+    on_this_side += m;
+  };
+  for (int i = 0; i < n; i++)
+    if (dec[i] == T4X_UNDECIDED) todo.push_back(i);
+  on_host();
+  if (b2) {
+    todo.clear();
+    for (int i = 0; i < n; i++) {
+      if (dec[i]) continue;
+      tested++;
+      if (dec[n + i] == T4X_UNDECIDED) todo.push_back(n + i);
+    }
+    on_host();
+  }
+  decided[0] += tested - on_this_side;
+  decided[1] += on_this_side;
+  for (int i = 0; i < n; i++)
+    good[i] = dec[i] ? dec[i] : (b2 ? dec[n + i] : 0);
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Stream paths1 (newline-joined; paths2 NULL or same count for paired),
 // filter with the existing handle's index (candidate = either mate passes,
 // mate tested only when the first fails), write survivors in input order
-// to out1/out2.  Returns candidate count, or -1 on I/O failure.  A reader
-// thread inflates and parses batch k+1 while `threads` workers filter
-// batch k.  phase_ns (NULL or 4 slots) receives the nanoseconds spent
-// reading (opening, then the reader thread's inflating and parsing),
-// filtering (threads), writing (closing included) and, on the calling
+// to out1/out2.  Returns candidate count, -1 on I/O failure, or -2 when
+// the decider failed.  A reader thread inflates and parses batch k+1
+// while batch k is filtered: by `threads` workers, or with a decider
+// (NULL: none) by it, the calling thread packing its batches and
+// deciding what it leaves undecided (decide_batch).  phase_ns (NULL or 4
+// slots) receives the nanoseconds spent reading (opening, then the reader
+// thread's inflating and parsing), filtering (threads, or the decider
+// with its packing), writing (closing included) and, on the calling
 // thread, waiting for a read batch (the opening included): the calling
-// thread's time is the last three.
+// thread's time is the last three.  decided (NULL or 2 slots) receives
+// the candidate tests the mate rule made that the decider decided and
+// that this side decided (all of them without a decider).
 int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
                            const char *out1, const char *out2, int threads,
-                           int64_t *phase_ns) {
+                           int64_t *phase_ns, const t4x_decider *decider,
+                           int64_t *decided) {
   Filter *F = (Filter *)h;
   finalize_index(*F);
   PhaseClock clock;
@@ -1094,8 +1232,9 @@ int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
   clock.lap(3);
   int64_t open_ns = clock.ns[3];
 
-  std::vector<int8_t> good(ReadAhead::BATCH);
-  int64_t kept = 0;
+  std::vector<int8_t> good(ReadAhead::BATCH), dec;
+  int64_t kept = 0, counts[2] = {0, 0};
+  int failed = 0;
   ReadAhead ra(s1, s2);
 
   for (int64_t k = 0;; k++) {
@@ -1105,27 +1244,38 @@ int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
     if (n == 0) break;
     const std::vector<Rec> &b1 = slot.b1, &b2 = slot.b2;
 
-    auto work = [&](int lo, int hi) {
-      std::vector<Hit> buf;
-      for (int i = lo; i < hi; i++) {
-        const Rec &r = b1[i];
-        int8_t g = 0;
-        if (!is_low_complexity(r.seq.data(), (int)r.seq.size()))
-          g = (int8_t)has_hit_in_set(*F, r.seq.data(), (int)r.seq.size(),
-                                     buf);
-        if (!g && s2) {
-          const Rec &m = b2[i];
-          if (!is_low_complexity(m.seq.data(), (int)m.seq.size()))
-            g = (int8_t)has_hit_in_set(*F, m.seq.data(),
-                                       (int)m.seq.size(), buf);
-        }
-        good[i] = g;
-      }
-    };
-    if (threads <= 1 || n < 64) {
-      work(0, n);
+    if (decider) {
+      failed = decide_batch(*F, *decider, b1, s2 ? &b2 : nullptr, n,
+                            threads, dec, good, counts);
+      if (failed) break;
     } else {
-      steal_for(n, threads, 256, [&](int lo, int hi) { work(lo, hi); });
+      std::atomic<int64_t> mates{0};
+      auto work = [&](int lo, int hi) {
+        std::vector<Hit> buf;
+        int64_t tested = 0;
+        for (int i = lo; i < hi; i++) {
+          const Rec &r = b1[i];
+          int8_t g = 0;
+          if (!is_low_complexity(r.seq.data(), (int)r.seq.size()))
+            g = (int8_t)has_hit_in_set(*F, r.seq.data(), (int)r.seq.size(),
+                                       buf);
+          if (!g && s2) {
+            tested++;
+            const Rec &m = b2[i];
+            if (!is_low_complexity(m.seq.data(), (int)m.seq.size()))
+              g = (int8_t)has_hit_in_set(*F, m.seq.data(),
+                                         (int)m.seq.size(), buf);
+          }
+          good[i] = g;
+        }
+        mates += tested;
+      };
+      if (threads <= 1 || n < 64) {
+        work(0, n);
+      } else {
+        steal_for(n, threads, 256, [&](int lo, int hi) { work(lo, hi); });
+      }
+      counts[1] += n + mates.load();
     }
     clock.lap(1);
 
@@ -1146,7 +1296,11 @@ int64_t t4x_extract_stream(void *h, const char *paths1, const char *paths2,
   delete s2;
   clock.lap(2);
   clock.report(phase_ns, 4);
-  return kept;
+  if (decided) {
+    decided[0] = counts[0];
+    decided[1] = counts[1];
+  }
+  return failed ? -2 : kept;
 }
 
 }  // extern "C"

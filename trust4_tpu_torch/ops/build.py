@@ -61,6 +61,13 @@ _SIGNATURES = {
     "microbench": {
         "t4_microbench": ([_CI] * 4 + [_VP] * 2 + [_CI] * 3 + [_VP], _CI),
     },
+    "extract_filter": {
+        "t4_extract_filter": ([_VP] * 2 + [_CI] * 4 + [_VP] * 2 + [_CI]
+                              + [_VP] * 2, _CI),
+        "t4_extract_decide": ([_VP, _CI, ctypes.c_int64], _CI),
+        "t4_extract_filter_max_seqs": ([], _CI),
+        "t4_extract_filter_launches": ([], ctypes.c_longlong),
+    },
 }
 
 # name -> seconds its nvcc took in this process, and its compiler output

@@ -53,12 +53,17 @@ unbounded.
   ``prewarm(device)``  the boot thread imports torch (``BOOT`` records
                        the thread and its seconds), checks the card, then
                        creates the CUDA context, builds and loads the
-                       counts kernel, and makes one round trip per tier
-                       (every instance ``dp_counts.CHOICE`` names for the
-                       tier's band, on a few jobs whose counts it
-                       checks); on the CPU the import is its whole work.
+                       counts kernel and the extraction filter's kernel
+                       (ops/extract_filter.py), and makes one round trip
+                       per tier (every instance ``dp_counts.CHOICE``
+                       names for the tier's band, on a few jobs whose
+                       counts it checks); on the CPU the import is its
+                       whole work.
                        pipeline/run.py starts it before extraction.
-  readiness            the first ``gap_counts`` joins the boot after its
+  readiness            ``ready(device)`` says, without waiting, whether
+                       the boot has ended well (extraction takes the
+                       card's filter only then); the first ``gap_counts``
+                       joins the boot after its
                        native dedup (starting one if none runs), bounded by
                        TRUST4_TPU_DEVICE_READY_TIMEOUT_S (default 300); a
                        failed boot's exception (an ImportError, a missing
@@ -115,7 +120,9 @@ _RC_FLAG = 1 << 30
 # just around each kernel launch, read once the batch is complete: no
 # extra synchronisation) and the prewarm's launches; while spans are
 # recorded (utils/spans.py), ``band_cells``: per tier, the band cells
-# each launch's jobs need (dp_counts.band_cells).
+# each launch's jobs need (dp_counts.band_cells), and ``extract_reads``:
+# the bulk extraction stream's candidate tests decided on the card and on
+# the host (pipeline/extract.py run_extractor).
 STATS = {}
 
 
@@ -128,6 +135,7 @@ def reset_stats() -> None:
         tier_widths=[{} for _ in _TIERS], band_cells=[[] for _ in _TIERS],
         miss=0, dedup_s=0.0, emit_s=0.0, device_s=0.0, cpu_left_s=0.0,
         ready_wait_s=0.0, complete_wait_s=0.0, prewarm_launches=0,
+        extract_reads=[0, 0],
     )
 
 
@@ -253,23 +261,26 @@ _torch_at_first_boot = None
 
 
 def _prewarm_body(device) -> None:
-    """The CUDA context, the counts kernel's build and load, and one round
-    trip per tier through every instance CHOICE names for its band, on 32
-    jobs whose text and query are the same cap-long sequence (counts
-    (cap, 0, 0), checked): the phases ``context``, ``load`` and ``warm``.
-    Nothing on the CPU: no context, no build."""
+    """The CUDA context, the build and load of the counts kernel and of
+    the extraction filter's kernel, and one round trip per tier through
+    every instance CHOICE names for its band, on 32 jobs whose text and
+    query are the same cap-long sequence (counts (cap, 0, 0), checked):
+    the phases ``context``, ``load`` and ``warm``.  Nothing on the CPU:
+    no context, no build."""
     if device.type != "cuda":
         return
     import torch
 
     from trust4_tpu_torch.ops import dp_counts
-    from trust4_tpu_torch.ops.build import load
+    from trust4_tpu_torch.ops.build import build_all, load
 
     with _phase("context"):
         torch.cuda.set_device(device)
         torch.empty(1, device=device)
     with _phase("load"):
+        build_all(["dp_counts", "extract_filter"])
         load("dp_counts")
+        load("extract_filter")
     with _phase("warm"):
         for s_cap, w_cap, _chunk in _TIERS:
             codes = np.tile(np.arange(s_cap, dtype=np.int8) % 4, (32, 1))
@@ -337,6 +348,16 @@ def prewarm(device="cuda") -> None:
             _torch_at_first_boot = _torch_loaded()
         if key not in _prewarms:
             _prewarms[key] = _Prewarm(key)
+
+
+def ready(device="cuda") -> bool:
+    """Whether ``device``'s boot has ended with no error.  Never blocks,
+    starts nothing, and imports nothing."""
+    if _torch_at_first_boot is None:
+        return False
+    with _prewarms_lock:
+        pw = _prewarms.get(_key(device))
+    return pw is not None and not pw.thread.is_alive() and pw.error is None
 
 
 def wait_ready(device="cuda") -> None:

@@ -15,6 +15,7 @@ from typing import Iterator, List, Optional, Tuple
 from trust4_tpu_torch.dna import NUC_TO_NUM
 from trust4_tpu_torch.engine.seqset import SeqSet
 from trust4_tpu_torch.io.fastx import FastxRecord, read_fastx
+from trust4_tpu_torch.ops import gap_oracle
 from trust4_tpu_torch.utils import spans
 
 
@@ -539,6 +540,22 @@ def run_barcoded_extractor(
             fp.close()
 
 
+def card_filter(native, device):
+    """The card's candidate filter for ``native``'s index
+    (ops/extract_filter.py), or None to filter on the stream's threads.
+    The card is taken in the shipping mode (gap_oracle.enabled) on a
+    ``cuda`` device once its boot has ended well (gap_oracle.ready): the
+    warm samples of a process, not its first, whose extraction runs
+    beside the boot's import of torch.  Either path writes the same
+    candidate files; an index the kernel cannot take raises."""
+    if not (str(device).startswith("cuda") and gap_oracle.enabled()
+            and gap_oracle.ready(device)):
+        return None
+    from trust4_tpu_torch.ops import extract_filter
+
+    return extract_filter.CardFilter(native, device)
+
+
 def run_extractor(
     ref_fa: str,
     read1,
@@ -550,8 +567,10 @@ def run_extractor(
     device: str = "cuda",
 ) -> Tuple[str, Optional[str]]:
     """Write *_toassemble FASTQs like the reference extractor binary.
-    ``device`` is where the prefilter runs (use_tpu_prefilter only)."""
-    native = None
+    ``device`` is where the prefilter runs (use_tpu_prefilter only) and,
+    in the shipping mode once the card is up, the candidate test
+    (``card_filter``)."""
+    native = card = None
     if not use_tpu_prefilter:
         # The reference's index, the hit length and the native filter.
         with spans.span("extract/prepare"):
@@ -567,6 +586,7 @@ def run_extractor(
                     ref_set.radius, hit_len,
                 )
                 del ref_set  # its index is freed inside the span
+                card = card_filter(native, device)
     if native is not None:
         # Fully-native streaming loop: parse, filter, and write in C++
         # (bit-identical candidate set and record formatting; the Python
@@ -579,14 +599,19 @@ def run_extractor(
             )
             p1, p2 = f"{out_prefix}_1.fq", f"{out_prefix}_2.fq"
             native.extract_stream([str(p) for p in paths1],
-                                  [str(p) for p in paths2], p1, p2, nthreads)
+                                  [str(p) for p in paths2], p1, p2, nthreads,
+                                  decider=card)
         else:
             p1, p2 = f"{out_prefix}.fq", None
             native.extract_stream([str(p) for p in paths1], None, p1, None,
-                                  nthreads)
+                                  nthreads, decider=card)
         stream_phases(native)
+        if spans.on():
+            reads = gap_oracle.STATS["extract_reads"]
+            for i, n in enumerate(native.decided):
+                reads[i] += n
         with spans.span("extract/release"):
-            del native  # the filter's index
+            del native, card  # the filter's index and its tables on the card
         return p1, p2
 
     if read2 is not None:

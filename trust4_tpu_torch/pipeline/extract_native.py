@@ -17,6 +17,21 @@ import numpy as np
 
 from trust4_tpu_torch.utils.nativebuild import ensure_built
 
+# out[i] of a batch decider that leaves read i to the host
+# (native/extract_filter.cpp t4x_decider).
+UNDECIDED = 2
+
+
+class Decider(ctypes.Structure):
+    """native/extract_filter.cpp ``t4x_decider``, field for field."""
+
+    _fields_ = [
+        ("decide", ctypes.c_void_p), ("ctx", ctypes.c_void_p),
+        ("bases", ctypes.c_void_p), ("bases_cap", ctypes.c_int64),
+        ("offs", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("reads_cap", ctypes.c_int32),
+    ]
+
 _LIB = None
 _TRIED = False
 
@@ -53,6 +68,13 @@ def _load():
     lib.t4x_extract_stream.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
         ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.t4x_csr_view.restype = ctypes.c_int
+    lib.t4x_csr_view.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
     ]
     lib.t4x_extract_stream_bc.restype = ctypes.c_int64
     lib.t4x_extract_stream_bc.argtypes = [
@@ -107,7 +129,9 @@ class NativeCandidateFilter:
     ``phase_ns``: the last stream's nanoseconds reading (opening,
     inflating, parsing), filtering and writing (closing included); the
     bulk stream adds a fourth, the calling thread's wait for its reader
-    thread's batches."""
+    thread's batches.  ``decided``: the bulk stream's candidate tests
+    (every first read, and the mates the mate rule reaches) decided by
+    its batch decider and by the host."""
 
     def __init__(self, ref_seqs: List[str], kmer_length: int, radius: int,
                  hit_len_required: int):
@@ -117,6 +141,7 @@ class NativeCandidateFilter:
         self._lib = lib
         self._h = lib.t4x_create(kmer_length, radius)
         self.phase_ns = (0, 0, 0)
+        self.decided = (0, 0)
         for s in ref_seqs:
             lib.t4x_add_seq(self._h, s.encode("ascii"))
         lib.t4x_set_hit_len(self._h, hit_len_required)
@@ -135,24 +160,57 @@ class NativeCandidateFilter:
             self._h, read.encode("ascii"), len(read)
         )
 
+    def csr_view(self):
+        """The index's direct-addressed tables (t4x_csr_view), as numpy
+        views of the filter's own memory: (starts (4^k + 1,) int32,
+        postings (n, 2) int32 of (sequence, offset), (k, radius, hit
+        length, sequences)); None without them (k > 12)."""
+        off, posts = ctypes.c_void_p(), ctypes.c_void_p()
+        n_off, n_posts = ctypes.c_int64(), ctypes.c_int64()
+        meta = (ctypes.c_int32 * 4)()
+        if self._lib.t4x_csr_view(self._h, ctypes.byref(off),
+                                  ctypes.byref(n_off), ctypes.byref(posts),
+                                  ctypes.byref(n_posts), meta) != 0:
+            return None
+
+        def view(ptr, n):
+            if n == 0:
+                return np.zeros(0, np.int32)
+            return np.ctypeslib.as_array(
+                ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int32)), (n,))
+
+        return (view(off, n_off.value),
+                view(posts, 2 * n_posts.value).reshape(-1, 2), tuple(meta))
+
     def extract_stream(self, paths1: List[str], paths2: Optional[List[str]],
                        out1: str, out2: Optional[str],
-                       threads: int = 1) -> int:
+                       threads: int = 1, decider=None) -> int:
         """Full extraction loop in native code (read -> filter -> write,
         input order preserved; FastqExtractor.cpp:549-724 batched flow).
         A reader thread inflates and parses the next batch while the
-        filter runs this one.  Returns the candidate count, or raises on
-        I/O failure."""
+        filter runs this one: on ``threads`` workers, or through
+        ``decider``, an object whose ``as_decider()`` gives a ``Decider``
+        that decides each batch's reads in place of the threads and whose
+        ``failed()``, if it has one, raises what made that fail.  Returns
+        the candidate count, or raises on I/O failure and on the
+        decider's."""
         j1 = "\n".join(paths1).encode()
         j2 = "\n".join(paths2).encode() if paths2 else None
         ns = (ctypes.c_int64 * 4)()
+        decided = (ctypes.c_int64 * 2)()
+        dec = None if decider is None else ctypes.byref(decider.as_decider())
         n = self._lib.t4x_extract_stream(
             self._h, j1, j2, out1.encode(),
-            out2.encode() if out2 else None, threads, ns,
+            out2.encode() if out2 else None, threads, ns, dec, decided,
         )
+        if n == -2:
+            if hasattr(decider, "failed"):
+                decider.failed()
+            raise RuntimeError("the extraction stream's batch decider failed")
         if n < 0:
             raise OSError(f"native extract failed reading {paths1}")
         self.phase_ns = tuple(ns)
+        self.decided = tuple(decided)
         return int(n)
 
     def extract_stream_bc(self, paths1, paths2, bc_paths, umi_paths,

@@ -27,6 +27,11 @@ strand``; ``STANDIN_LOCI`` says where each locus lies), and
 receptor and background pairs against those places; its receptor reads,
 and the SMART-seq cells of ``write_smartseq_cell``, come from
 ``clone_templates``.
+
+For extraction's candidate filter (on the threads, in the kernel's host
+build, on the card): ``mix_reads`` (a bulk mix's 100-base reads),
+``filter_parity_reads`` (every quirk of the filter at one read length)
+and ``filter_repeats_case`` (k-mers of over 10,000 postings).
 """
 
 from __future__ import annotations
@@ -249,6 +254,104 @@ def clone_templates(coord_fa: str, n_clones: int, seed: int
         c = rnd.choice(genes["C"])[0]
         out.append((v + ins + j + c[:150], len(v), chrom, start))
     return out
+
+
+def mix_reads(coord_fa: str, n: int, share: float, seed: int) -> List[str]:
+    """n 100-base reads shaped like a bulk benchmark mix: a ``share`` of
+    them cut from rearranged receptor templates (``clone_templates``, 200
+    clones; either strand, up to two substitutions), the rest uniform
+    random."""
+    rng = np.random.default_rng(seed)
+    templates = [t for t, *_ in clone_templates(coord_fa, 200, seed)]
+    reads = [r.tobytes().decode() for r in np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, (n, 100))]]
+    for i in np.nonzero(rng.random(n) < share)[0]:
+        t = templates[int(rng.integers(len(templates)))]
+        at = int(rng.integers(len(t) - 100))
+        r = bytearray(t[at:at + 100].encode())
+        for _ in range(int(rng.integers(3))):
+            r[int(rng.integers(100))] = b"ACGT"[int(rng.integers(4))]
+        r = r.decode()
+        reads[i] = revcomp(r) if rng.random() < 0.5 else r
+    return reads
+
+
+def filter_parity_reads(seqs: List[str], templates: List[str], length: int,
+                        rng) -> List[str]:
+    """Reads of one length for holding a candidate filter to another:
+    random ones; cut from the reference ``seqs`` and from rearranged
+    receptor ``templates``, either strand, a few substitutions; those
+    with one N, with several, with a byte other than ACGTN; low-complexity
+    ones (runs, short repeats); and reads with a run of one base, whose
+    windows are alike in a row."""
+    def cut(src):
+        at = int(rng.integers(max(1, len(src) - length + 1)))
+        r = bytearray(src[at:at + length].ljust(length, "A").encode())
+        for _ in range(int(rng.integers(4))):
+            r[int(rng.integers(length))] = b"ACGT"[int(rng.integers(4))]
+        r = r.decode()
+        return revcomp(r) if rng.random() < 0.5 else r
+
+    def with_bytes(r, byte, k):
+        r = bytearray(r.encode())
+        for _ in range(k):
+            r[int(rng.integers(length))] = ord(byte)
+        return r.decode()
+
+    out = ["".join("ACGT"[int(b)] for b in rng.integers(0, 4, length))
+           for _ in range(150)]
+    for _ in range(150):
+        out.append(cut(seqs[int(rng.integers(len(seqs)))]))
+        out.append(cut(templates[int(rng.integers(len(templates)))]))
+    planted = out[150:]
+    for i in range(60):
+        out.append(with_bytes(planted[i], "N", 1))
+        out.append(with_bytes(planted[60 + i], "N", int(rng.integers(2, 6))))
+        out.append(with_bytes(planted[120 + i], "acgtRY."[i % 7], 2))
+    for unit in ("A", "AC", "ACG", "AAAAT", "GGGC"):
+        out.append((unit * length)[:length])
+        out.append(with_bytes((unit * length)[:length], "T", 3))
+    for i in range(60):
+        r, n = planted[i], int(rng.integers(10, 16))
+        at = int(rng.integers(max(1, length - n)))
+        out.append((r[:at] + "ACGT"[i % 4] * n + r[at + n:])[:length])
+    return out
+
+
+def filter_repeats_case(seed: int = 5) -> Tuple[List[str], List[str]]:
+    """Sequences to add to an index so that some k-mers (k = 9) have more
+    than 10,000 postings, and reads that reach them: a 20-base element
+    as 10,001 sequences and twice in a gene of its own, which also holds
+    a run of 14 A.  The reads are cut across the gene's copies (60, 100
+    and 150 bases, either strand, a few substitutions), carry the element
+    among random bases, or hold a few bases either side of the run of A.
+    Returns (sequences, reads)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return "".join("ACGT"[int(b)] for b in rng.integers(0, 4, n))
+
+    rep = rand(20)
+    gene = rand(60) + rep + rand(30) + rep + rand(20) + "A" * 14 + rand(60)
+    run_at = gene.index("A" * 14)
+    reads = []
+    for length in (60, 100, 150):
+        for _ in range(200):
+            at = int(rng.integers(len(gene) - length + 1))
+            r = bytearray(gene[at:at + length].encode())
+            for _ in range(int(rng.integers(3))):
+                r[int(rng.integers(length))] = b"ACGT"[int(rng.integers(4))]
+            r = r.decode()
+            reads.append(revcomp(r) if rng.random() < 0.5 else r)
+        for _ in range(50):
+            at = int(rng.integers(length - 20))
+            reads.append((rand(at) + rep + rand(length))[:length])
+        for _ in range(100):
+            lo = run_at - int(rng.integers(0, 12))
+            hi = run_at + 14 + int(rng.integers(0, 12))
+            at = int(rng.integers(length - (hi - lo)))
+            reads.append((rand(at) + gene[lo:hi] + rand(length))[:length])
+    return [gene] + [rep] * 10_001, reads
 
 
 def bgzf_block(data: bytes, level: int = 6) -> bytes:
